@@ -3,7 +3,7 @@
 // The reference delegates mesh ingest/partitioning to deal.II C++
 // (GridIn::read_msh + GridTools::partition_triangulation,
 // /root/reference/src/NavierStokesSolver.cpp:12-21).  This library is the
-// equivalent native component for the TPU framework: a fast gmsh parser and
+// equivalent native component for this framework: a fast gmsh parser and
 // topology kit for the host-side setup path, where the pure-numpy fallback
 // (navier_stokes_tpu/mesh/msh_io.py) becomes the bottleneck at 10M-DoF scale.
 //

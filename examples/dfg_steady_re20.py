@@ -32,7 +32,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 import numpy as np
 
@@ -134,4 +133,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from navier_stokes_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

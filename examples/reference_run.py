@@ -33,10 +33,13 @@ def main():
     cfg.krylov.max_iters = 3000
     cfg.newton.max_iters = 25  # divergent steps cap (the as-shipped flow blows up around t=0.3; see newton_trajectory.json)
 
+    mesh = "/root/reference/mesh/correct_mesh_yt.msh"
+    if not os.path.exists(mesh):  # generated channel of the same extent:
+        # map the generator's tags (0 inlet, 1 outlet, 2-3 walls)
+        mesh = ns.rectangle(60, 30, 0, 7, 0, 4)
+        cfg.inlet_tags, cfg.neumann_tags, cfg.wall_tags = (0,), (1,), (2, 3)
     log = ns.RunLog()
-    solver = ns.NavierStokesSolver(
-        "/root/reference/mesh/correct_mesh_yt.msh", cfg, log=log
-    )
+    solver = ns.NavierStokesSolver(mesh, cfg, log=log)
     solver.setup()
     writer = XdmfWriter(solver.dofs, output_dir=outdir)
     solver.output_hooks.append(lambda s, t, sol: writer.write(s, t, sol))
@@ -63,4 +66,7 @@ def main():
 
 
 if __name__ == "__main__":
+    from navier_stokes_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     main()

@@ -1,4 +1,4 @@
-"""navier_stokes_tpu — TPU-native incompressible Navier-Stokes FEM framework.
+"""navier_stokes_tpu — incompressible Navier-Stokes FEM framework in JAX.
 
 A ground-up JAX/XLA re-design with the capability surface of
 giuseppeegentile/Navier-Stokes-dealii (deal.II + Trilinos + MPI; see SURVEY.md

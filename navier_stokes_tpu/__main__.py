@@ -151,6 +151,9 @@ def main(argv=None):
     p_info.set_defaults(fn=cmd_info)
 
     args = ap.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     return args.fn(args)
 
 

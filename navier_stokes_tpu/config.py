@@ -40,54 +40,35 @@ class KrylovConfig:
     # FGMRES restart window.  Since the fill-aware CGS2 (la/gmres.py) the
     # window size no longer taxes per-iteration cost — orthogonalization
     # streams only the FILLED tiles of V — so 60 keeps the long-window
-    # robustness (3D ~40-iteration solves, weakly-pinned channels) for free
-    # (measured r30 186.0 ms vs r60 187.5 ms at the 543k bench leg,
-    # scripts/sweep_r5.py; the r4 fixed-window form paid ~5% for r60)
+    # robustness (3D ~40-iteration solves, weakly-pinned channels)
     restart: int = 60
     preconditioner: str = "identity"  # cpp:570 | "block_diagonal" |
     # "block_triangular" | "cahouet_chabard" (windowed path only; our
     # flagship: pressure-Laplacian Schur for the mass-dominated tangent)
-    # operator application: "flat" = gather/segment-sum; "windowed" = the
-    # Pallas two-level one-hot kernel (ops/windowed.py; requires blocked
-    # dof renumbering, done automatically; ~4-5x faster per matvec on TPU)
+    # operator application: "flat" = gather/segment-sum over [nc, nl, nl];
+    # "windowed" = the blocked-window operator (ops/windowed.py; requires
+    # blocked dof renumbering, done automatically), which the
+    # Cahouet-Chabard preconditioner, the steady driver and the
+    # halo-exchange SPMD path are built on
     matvec: str = "flat"
-    # windowed-layout block size.  Together with chunk_cells this sets the
-    # padded cell count (Bmax = max block occupancy rounded up to Bc): 448
-    # lands the 543k bench mesh at Bmax=512 with pad 1.16 and 2 chunks/block
-    # (vs 1.50 and 3 at the old 512 default) — measured 151 ms vs 202 ms per
-    # forced Newton step, scripts/sweep_r5.py round 5; 320 (more blocks) and
-    # 640+ (bigger windows) both lose.  The solver's setup retry-doubles this
-    # until the halo fits, so wide-bandwidth 3D meshes self-adjust upward.
+    # windowed-layout block size (dofs owned per block follow from it).  The
+    # solver's setup retry-doubles this until the halo fits, so
+    # wide-bandwidth 3D meshes self-adjust upward.
     cells_per_block: int = 448
-    # windowed-kernel lane-chunk size Bc (multiple of 128).  The kernel is
-    # grid-step-overhead-bound at Bc=128 (per-step one-hot construction +
-    # DMA latencies dominate the tiny dots), so wider chunks amortize the
-    # fixed costs into bigger MXU contractions.  Measured on TPU v5e at the
-    # 543k bench leg (whole forced Newton steps, scripts/sweep_r5.py):
-    # Bc=256 cuts the step 217 -> 196 ms at unchanged iteration counts and
-    # unchanged subwindow rows (RVv stays 24); Bc=512 gives most of that
-    # (203 ms) with higher VMEM pressure.  256 is the default.
+    # the padded per-block cell count Bmax is the largest block occupancy
+    # rounded up to a multiple of this (at least 128)
     chunk_cells: int = 256
-    # bf16 value-split terms in the windowed Krylov operator: 3 = f32-exact,
-    # 2 ~ 2e-5 relative (ample for the rel_tol 1e-2 tangent solves), 1 = bf16.
-    # Assembly gathers/scatters always use the exact 3-term split.
-    matvec_passes: int = 2
-    # bf16 value-split passes for PRECONDITIONER matvecs (A00/B/Kp inner
-    # sweeps).  The preconditioner only steers FGMRES, so 1 (pure bf16,
-    # ~2x faster selection matmuls) is safe; the outer operator keeps
-    # matvec_passes.
-    precond_passes: int = 1
     # storage dtype of the preconditioner's sliced operator blocks (A00/B/Kp)
-    # on the f32 path: "bfloat16" halves their HBM reads — the dominant
+    # on the f32 path: "bfloat16" halves their memory reads — the dominant
     # per-outer-iteration cost (the CC apply streams the A00 block per inner
-    # CG iteration).  The kernel widens rows to f32 in VMEM, so accumulation
-    # precision is unchanged; only the stored block values are rounded
-    # (~3e-3 relative — M only steers FGMRES).  "float32" restores exact
-    # blocks.  Ignored on the f64 (CPU-parity) path.
+    # CG iteration).  The block matvec widens entries to f32 on read, so
+    # accumulation precision is unchanged; only the stored block values are
+    # rounded (~3e-3 relative — M only steers FGMRES).  "float32" restores
+    # exact blocks.  Ignored on the f64 (CPU-parity) path.
     precond_block_dtype: str = "bfloat16"
     # storage dtype of the OUTER tangent operator A_t inside the unsteady
-    # Newton tangent solve: "bfloat16" halves the dominant HBM stream of the
-    # outer FGMRES matvec (the kernel widens rows to f32 in VMEM, so
+    # Newton tangent solve: "bfloat16" halves the dominant memory stream of
+    # the outer FGMRES matvec (entries are widened to f32 on read, so
     # accumulation precision is unchanged; only the stored entries are
     # rounded, ~3e-3 relative).  The Newton RESIDUAL stays f32-exact, so
     # this is plain inexact-Newton: a 3e-3-relative Jacobian perturbation is
@@ -99,9 +80,8 @@ class KrylovConfig:
     # STORAGE dtype of the assembled windowed tangent (A_const and the
     # per-iteration A_t it produces) on the f32 path: "bfloat16" halves the
     # two largest device-resident buffers of a windowed solve.  This is the
-    # single-chip capacity knob for 3D (VERDICT r3 #3): at step-5 refine=2
-    # (3.75M DoF tets, nl=34) the f32 A_const + A_t alone are ~11 GB; bf16
-    # brings the whole solve inside one v5e chip.  Numerics: the residual
+    # single-device capacity knob for 3D: at step-5 refine=2 (3.75M DoF
+    # tets, nl=34) the f32 A_const + A_t alone are ~11 GB.  Numerics: the residual
     # (Newton RHS) is still assembled f32-exact — only the TANGENT entries
     # are rounded (~3e-3 relative), the same inexact-Newton perturbation as
     # operator_dtype="bfloat16" (which this subsumes: the operator is then
@@ -115,20 +95,20 @@ class KrylovConfig:
     inner_max_iters: int = 2000  # hpp:598
     # cahouet_chabard inner sweep lengths (fixed-iteration coarse-corrected
     # Jacobi-CG on the velocity block and on the pressure-Laplacian Schur
-    # term).  Round-5 on-TPU sweep at the 543k bench leg (whole forced
-    # Newton steps, scripts/sweep_r5.py, Bc=256 + fill-aware CGS2):
-    #   a00=2, ap=8  -> 202 ms / 21 outer iterations  (round-4 default)
-    #   a00=3, ap=8  -> 172 ms / 16-18
-    #   a00=4, ap=8  -> 168 ms / 14-16   <- default
-    #   a00=4, ap=6  -> 169 ms / 16-17
+    # term).  Outer FGMRES iterations per forced Newton step at the 543k
+    # bench mesh (scripts/sweep_r5.py, f32 on the previous accelerator;
+    # not yet rerun on the GPU):
+    #   a00=2, ap=8  -> 21 outer iterations
+    #   a00=3, ap=8  -> 16-18
+    #   a00=4, ap=8  -> 14-16   <- default
+    #   a00=4, ap=6  -> 16-17
     #   a00=1 or ap<6 degrade the outer count outright (29+ / 22+).
-    # The longer A00 sweep pays for itself because each extra inner CG
-    # iteration costs ~0.6 ms while a saved outer iteration saves ~8 ms
-    # (CC apply + outer matvec + orthogonalization).  Earlier rounds'
-    # "a00=3 adds nothing over a00=2" was measured WITHOUT the velocity
-    # coarse space at Bc=128; with cc_coarse_agg_v the stronger sweep
-    # translates into outer-count wins at every probed size.  Coarser
-    # aggregates (64) still DEGRADE (211 outer iterations at 1.78M).
+    # Whether the longer A00 sweep pays for itself in time depends on the
+    # device's cost of an inner CG iteration against a saved outer
+    # iteration; the defaults have not been re-timed on the GPU.  With
+    # cc_coarse_agg_v the stronger sweep translates into outer-count wins at
+    # every probed size.  Coarser aggregates (64) DEGRADE (211 outer
+    # iterations at 1.78M).
     cc_iters_a00: int = 4
     cc_iters_ap: int = 8
     # inner-sweep preconditioner composition (when the matching coarse space
@@ -147,7 +127,7 @@ class KrylovConfig:
     # sweep: aggregate this many consecutive pressure dofs (SFC/blocked
     # numbering => spatially compact aggregates) into one piecewise-constant
     # coarse basis function; the coarse Galerkin matrix Zt Kp Z is inverted
-    # densely ONCE on host and applied per CG iteration as one tiny MXU
+    # densely ONCE on host and applied per CG iteration as one tiny dense
     # matmul (M^-1 = diag^-1 + Z Kc^-1 Zt, SPD).  0 disables (pure Jacobi).
     #
     # DEFAULT -1 = AUTO (r3): enable the coarse term (agg 128) only when the

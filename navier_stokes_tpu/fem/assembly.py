@@ -1,10 +1,10 @@
 """Batched Navier-Stokes / Stokes assembly as XLA tensor contractions.
 
-TPU-native replacement for the reference's hot per-cell quadrature loops
+JAX replacement for the reference's hot per-cell quadrature loops
 (``/root/reference/src/NavierStokesSolver.cpp:178-378`` Newton tangent,
 ``cpp:380-531`` Stokes).  deal.II iterates cells and accumulates 15x15
 FullMatrix objects; here ALL cells are processed in one batched einsum chain
-over static-shape arrays — the form XLA tiles onto the MXU/VPU — and the
+over static-shape arrays — the form XLA fuses and tiles — and the
 global residual is scattered with one ``segment_sum`` (the role of
 ``matrix.add``/``compress``, cpp:338-347).
 
@@ -39,9 +39,10 @@ from typing import Callable
 import jax
 import jax.numpy as jnp
 
-# TPU f32 matmuls default to ONE bf16 pass (~4e-3 relative error) — fatal for
-# residual assembly, whose small norm comes from cancelling O(1/dt)-scale
-# terms.  Force full f32 precision on every contraction in this module.
+# a GPU f32 contraction may run in TF32 (~3 digits) unless its precision is
+# pinned — fatal for residual assembly, whose small norm comes from
+# cancelling O(1/dt)-scale terms.  Force full f32 precision on every
+# contraction in this module.
 _PREC = jax.lax.Precision.HIGHEST
 import numpy as np
 

@@ -1,6 +1,6 @@
 """Dirichlet boundary conditions: interpolation + row constraint arrays.
 
-TPU-native replacement for deal.II ``VectorTools::interpolate_boundary_values``
+JAX replacement for deal.II ``VectorTools::interpolate_boundary_values``
 + ``MatrixTools::apply_boundary_values`` (``/root/reference/src/
 NavierStokesSolver.cpp:349-377``).  Instead of mutating a sparse matrix, the
 constrained rows become static index arrays; the matrix-free operator replaces

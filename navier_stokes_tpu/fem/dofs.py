@@ -1,6 +1,6 @@
 """DoF management for Taylor-Hood spaces on simplex meshes.
 
-TPU-native replacement for deal.II ``DoFHandler`` + ``DoFRenumbering::
+JAX replacement for deal.II ``DoFHandler`` + ``DoFRenumbering::
 component_wise`` + block IndexSets (``/root/reference/src/
 NavierStokesSolver.cpp:60-97``).  deal.II's dynamic DoF distribution becomes a
 one-shot host computation producing int32 index arrays; the global layout is
@@ -93,7 +93,7 @@ class TaylorHoodDofs:
     v_coords: np.ndarray  # [n_vs, dim]
     p_coords: np.ndarray  # [n_ps, dim]
     # optional renumbering (old "vertices then edges" id -> actual id), used
-    # by the space-filling-curve layout for the windowed TPU kernels.  None
+    # by the space-filling-curve layout for the windowed operator.  None
     # means identity (the natural [vertices | edges] order).
     v_perm: np.ndarray | None = None
     p_perm: np.ndarray | None = None
@@ -220,8 +220,8 @@ def renumber_sfc(dofs: TaylorHoodDofs, cell_order: np.ndarray) -> TaylorHoodDofs
     """First-touch renumbering along a cell ordering (space-filling curve).
 
     Makes each contiguous run of cells touch a (nearly) contiguous DoF range,
-    which is what the windowed TPU kernels (ops/windowed.py) need: gathers
-    become dynamic slices + tiny one-hot matmuls.  The numbering plays the
+    which is what the windowed operator (ops/windowed.py) needs: each block
+    of cells reads and writes a short window of the vector.  The numbering plays the
     role of deal.II's ``DoFRenumbering`` (the reference only renumbers
     component-wise, cpp:73; locality renumbering is our addition).
     """
@@ -259,7 +259,7 @@ def renumber_sfc(dofs: TaylorHoodDofs, cell_order: np.ndarray) -> TaylorHoodDofs
 def renumber_bandwidth(dofs: TaylorHoodDofs) -> tuple[TaylorHoodDofs, np.ndarray]:
     """Reverse-Cuthill-McKee renumbering: minimizes the DoF bandwidth so that
     every cell's scalar DoFs lie within an O(sqrt(n))-wide contiguous span —
-    the feasibility condition for the windowed TPU kernels (ops/windowed.py).
+    the feasibility condition for the windowed operator (ops/windowed.py).
 
     Returns (renumbered dofs, cell order sorted by first owned dof).
     """
@@ -343,7 +343,7 @@ def renumber_blocked(
     dofs: TaylorHoodDofs, cells_per_block: int = 512, nb_multiple: int = 1,
     order: str = "rcm",
 ) -> tuple[TaylorHoodDofs, dict]:
-    """Block-padded locality renumbering for the windowed TPU kernels.
+    """Block-padded locality renumbering for the windowed operator.
 
     One shared block structure drives BOTH spaces: cells are ordered for
     locality (``order``: "rcm" = bandwidth-minimizing Reverse-Cuthill-McKee

@@ -1,6 +1,6 @@
 """Problem-definition functions (forcing, inlet profile, initial condition).
 
-TPU-native equivalents of the reference's Function subclasses
+JAX equivalents of the reference's Function subclasses
 (``/root/reference/src/NavierStokesSolver.hpp:414-497``): plain numpy
 callables evaluated on host at DoF support points / quadrature points, then
 shipped to device as arrays.

@@ -1,6 +1,6 @@
 """Batched affine cell/face geometry for simplex meshes.
 
-TPU-native replacement for deal.II ``MappingFE``/``FEValues::reinit`` geometry
+JAX replacement for deal.II ``MappingFE``/``FEValues::reinit`` geometry
 updates (``update_JxW_values | update_quadrature_points | update_gradients``,
 ``/root/reference/src/NavierStokesSolver.cpp:188-195``).  deal.II recomputes
 Jacobians per cell inside the assembly loop; here all cells are processed at

@@ -1,6 +1,6 @@
 """Gauss quadrature rules on simplices (triangles, tetrahedra) and their faces.
 
-TPU-native replacement for deal.II ``QGaussSimplex<dim>`` as used by the
+JAX replacement for deal.II ``QGaussSimplex<dim>`` as used by the
 reference solver (``/root/reference/src/NavierStokesSolver.cpp:47,52``:
 ``QGaussSimplex<dim>(fe->degree + 1)`` for cells and
 ``QGaussSimplex<dim-1>(fe->degree + 1)`` for faces).

@@ -1,13 +1,13 @@
 """Lagrange simplex reference elements (P1, P2, P3) in 2D/3D, tabulated on host.
 
-TPU-native replacement for deal.II ``FE_SimplexP`` / ``FESystem`` / ``FEValues``
+JAX replacement for deal.II ``FE_SimplexP`` / ``FESystem`` / ``FEValues``
 as used by the reference (``/root/reference/src/NavierStokesSolver.cpp:33-56``).
 Instead of per-cell ``FEValues::reinit`` recomputation, shape values and
 reference gradients are tabulated ONCE at the quadrature points as small dense
 numpy arrays; physical gradients come from one batched contraction with the
 per-cell inverse Jacobians (see fem/geometry.py).  That keeps every per-cell
-quantity a static-shape tensor, which is what XLA needs to tile the assembly
-contractions onto the MXU.
+quantity a static-shape tensor, which is what XLA needs to batch the
+assembly contractions.
 
 Node ordering (defines local DoF order and must match mesh edge extraction):
   vertices [0..dim], then edges in EDGES[dim] order (P2 adds one midpoint node
@@ -155,7 +155,8 @@ class TaylorHood:
     Equivalent capability to the reference's
     ``FESystem(FE_SimplexP(2), dim, FE_SimplexP(1), 1)``
     (``/root/reference/src/NavierStokesSolver.cpp:35-38``) but with a
-    TPU-friendly planar component layout instead of deal.II node-major order.
+    planar component layout (one contiguous block per component) instead
+    of deal.II's node-major order.
     """
 
     dim: int

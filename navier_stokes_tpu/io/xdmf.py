@@ -1,6 +1,6 @@
 """HDF5 + XDMF visualization output (ParaView-compatible).
 
-TPU-native replacement for the reference's ``output()``
+JAX replacement for the reference's ``output()``
 (``/root/reference/src/NavierStokesSolver.cpp:681-728``): per-step files
 ``output-NNNN.h5`` + ``output-NNNN.xdmf`` carrying the velocity vector field,
 scalar pressure, and the per-cell ``partitioning`` id (cpp:702-705), with the

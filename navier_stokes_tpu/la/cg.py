@@ -1,6 +1,6 @@
 """Preconditioned conjugate gradients, jit-compatible.
 
-TPU-native replacement for deal.II ``SolverCG`` as used inside the
+JAX replacement for deal.II ``SolverCG`` as used inside the
 reference's block-triangular preconditioner
 (``/root/reference/src/NavierStokesSolver.hpp:598-618``: CG on the velocity
 stiffness block and on the pressure mass, absolute tolerance

@@ -1,6 +1,6 @@
-"""Restarted (F)GMRES, fully jit-compatible, MXU-friendly orthogonalization.
+"""Restarted (F)GMRES, fully jit-compatible, with blocked orthogonalization.
 
-TPU-native replacement for deal.II ``SolverGMRES`` as used by the reference
+JAX replacement for deal.II ``SolverGMRES`` as used by the reference
 (``/root/reference/src/NavierStokesSolver.cpp:566-585`` tangent solve with
 identity preconditioner, ``cpp:538-554`` Stokes solve with the block
 preconditioner).  Stopping matches ``SolverControl(maxit, tol)``: iterate
@@ -13,7 +13,7 @@ Design notes (XLA semantics):
     the inner iterations, with converged iterations masked to no-ops.
   * orthogonalization is classical Gram-Schmidt with reorthogonalization
     (CGS2): the m+1 dot products become ONE [m+1, n] @ [n] matvec — a single
-    MXU-shaped contraction instead of deal.II's sequential MGS dots, and a
+    dense contraction instead of deal.II's sequential MGS dots, and a
     single ``psum``-able reduction when sharded.
   * flexible variant (preconditioner may itself be an iterative solve, like
     the reference's inner CG/GMRES preconditioners, hpp:520-639): Z buffer
@@ -29,8 +29,8 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-_PREC = jax.lax.Precision.HIGHEST  # full f32 orthogonalization (TPU default
-# matmul precision is a single bf16 pass, which destroys CGS2)
+_PREC = jax.lax.Precision.HIGHEST  # full f32 orthogonalization (a GPU f32
+# dot may otherwise run in TF32, ~3 digits, which destroys CGS2)
 
 # Krylov-basis row-tile size of the fill-aware CGS2 streams (f32 sublane
 # tile).  The orthogonalization loops touch ceil((k+1)/TILE) tiles of V —
@@ -126,7 +126,7 @@ def fgmres(
     dots and all norms psum over the mesh axis (Krylov coefficients stay
     replicated, basis vectors stay sharded).
 
-    Cost model (matvec/precond dominate on TPU): the Arnoldi loop EXITS at
+    Cost model (matvec/precond dominate): the Arnoldi loop EXITS at
     the converged iteration (lax.while_loop, not a fixed restart-window
     sweep), the true residual computed at each cycle end is CARRIED into the
     next cycle (one matvec per cycle, not two), and ``x0=None`` starts from

@@ -1,13 +1,13 @@
 """Matrix-free distributed linear operators built from element matrices.
 
-TPU-native replacement for ``TrilinosWrappers::BlockSparseMatrix`` /
+JAX replacement for ``TrilinosWrappers::BlockSparseMatrix`` /
 ``MPI::BlockVector`` (``/root/reference/src/NavierStokesSolver.hpp:765-794``).
 Instead of a global sparse matrix assembled via ``matrix.add`` + ``compress``
 (cpp:338-347), the global operator stays in unassembled element form
 
     y = sum_cells  P_c^T  A_c  P_c x      (gather -> batched matvec -> scatter)
 
-which is one XLA gather, one MXU-friendly batched einsum over [nc, nl, nl],
+which is one XLA gather, one batched einsum over [nc, nl, nl],
 and one ``segment_sum`` scatter.  Constrained (Dirichlet) rows are replaced by
 ``diag * x`` reproducing ``MatrixTools::apply_boundary_values(..., false)``
 row-elimination semantics (cpp:375-376).
@@ -26,7 +26,7 @@ from functools import partial
 import jax
 import jax.numpy as jnp
 
-_PREC = jax.lax.Precision.HIGHEST  # full f32: TPU default is 1-pass bf16
+_PREC = jax.lax.Precision.HIGHEST  # full f32: a GPU f32 dot may run in TF32
 
 __all__ = ["ElementOperator", "matvec", "diagonal", "velocity_block", "pressure_mass_block"]
 

@@ -1,6 +1,6 @@
 """Block preconditioners for the [A B^T; B 0] saddle-point system.
 
-TPU-native replacements for the reference's preconditioner classes
+JAX replacements for the reference's preconditioner classes
 (``/root/reference/src/NavierStokesSolver.hpp:504-639``):
 
   * identity           <-> PreconditionIdentity (hpp:504-517)
@@ -12,7 +12,7 @@ TPU-native replacements for the reference's preconditioner classes
                            (tol 1e-2*||src_block||, <=2000 its).
 
 The one deliberate substitution: the reference wraps each inner solve in
-Trilinos ILU(0).  Sequential triangular solves have no efficient TPU mapping
+Trilinos ILU(0).  Sequential triangular solves have no efficient data-parallel mapping
 (SURVEY §7 "hard parts" #2), so inner solves are JACOBI-preconditioned — the
 diagonal is assembled from element matrices in one segment_sum.  Inner
 iteration counts are bounded by the same limits as the reference; the outer
@@ -74,9 +74,8 @@ def coarse_correction(
                 (fem/windowed_assembly two-level construction).
     agg_size:   contiguous run length; aggregates are runs of this many
                 consecutive scalar dofs, so restriction/prolongation are a
-                dense reshape-sum / broadcast (a TPU ``segment_sum`` lowers to
-                a ~3 ms scatter at 543k DoF; the reshape is ~free).  0 selects
-                the general segment-sum path.
+                dense reshape-sum / broadcast instead of a ``segment_sum``
+                scatter.  0 selects the general segment-sum path.
     ncomp:      vector components sharing ONE scalar coarse space; the input
                 is component-major [ncomp * n_s] and the correction applies
                 per component (the constant velocity block is

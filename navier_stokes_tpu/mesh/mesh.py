@@ -1,6 +1,6 @@
 """Host-side unstructured simplex mesh: SoA numpy arrays, static topology.
 
-TPU-native replacement for deal.II ``Triangulation`` /
+JAX replacement for deal.II ``Triangulation`` /
 ``parallel::fullydistributed::Triangulation`` as used by the reference
 (``/root/reference/src/NavierStokesSolver.cpp:6-25``).  deal.II's dynamic
 cell-iterator mesh becomes a frozen struct-of-arrays: every topological
@@ -201,7 +201,7 @@ def refine_uniform(mesh: Mesh, times: int = 1, snap_boundary: dict | None = None
     This is the scaling utility used to reach multi-chip problem sizes
     (BASELINE.md's ~10M-DoF configs) from the shipped meshes.
 
-    snap_boundary: optional {tag: project_fn} — the TPU-framework analogue of
+    snap_boundary: optional {tag: project_fn} — this framework's analogue of
     deal.II's manifold attachment for curved boundaries.  New vertices created
     ON a boundary facet with that tag get their coordinates replaced by
     ``project_fn(coords [m, dim]) -> [m, dim]`` (e.g. radial projection onto a

@@ -1,6 +1,6 @@
 """gmsh ``.msh`` reader (MSH 2.2 ASCII and MSH 4.1 ASCII) -> Mesh.
 
-TPU-native replacement for deal.II ``GridIn::read_msh``
+JAX replacement for deal.II ``GridIn::read_msh``
 (``/root/reference/src/NavierStokesSolver.cpp:12-16``).  The reference repo
 ships meshes in BOTH formats (see BASELINE.md's table), so both are parsed.
 Boundary ids follow deal.II semantics: the gmsh *physical* tag of the

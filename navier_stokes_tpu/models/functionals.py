@@ -21,6 +21,8 @@ import numpy as np
 from ..fem.dofs import TaylorHoodDofs
 from ..fem.geometry import facet_geometry
 
+_PREC = jax.lax.Precision.HIGHEST  # full f32: a GPU f32 dot may run in TF32
+
 __all__ = ["BoundaryForce", "BoundaryReaction", "strouhal_number", "divergence_l2"]
 
 
@@ -137,16 +139,16 @@ class BoundaryForce:
         uc = solution[idx]  # [nf, dim, nb_v]
         pc = solution[n_u + self.cell_pdofs]  # [nf, nb_p]
         # physical gradients of basis at face qpts: [nf, nb, q, d]
-        Gp = jnp.einsum("fda,fbqa->fbqd", self.invJT, self.G_ref)
-        gradu = jnp.einsum("fcb,fbqd->fqcd", uc, Gp)  # du_c/dx_d at face qpts
-        p_q = jnp.einsum("fb,fbq->fq", pc, self.N_p)
+        Gp = jnp.einsum("fda,fbqa->fbqd", self.invJT, self.G_ref, precision=_PREC)
+        gradu = jnp.einsum("fcb,fbqd->fqcd", uc, Gp, precision=_PREC)  # du_c/dx_d
+        p_q = jnp.einsum("fb,fbq->fq", pc, self.N_p, precision=_PREC)
         # traction on the FLUID: t = sigma . n with n out of the fluid;
         # the force exerted BY the fluid ON the boundary is the negative
         # (DFG convention: integrate with the normal pointing INTO the fluid)
         tr = -p_q[:, :, None] * self.normal[:, None, :] + (self.nu * self.rho) * jnp.einsum(
-            "fqcd,fd->fqc", gradu, self.normal
+            "fqcd,fd->fqc", gradu, self.normal, precision=_PREC
         )
-        return -jnp.einsum("fqc,fq->c", tr, self.jxw)
+        return -jnp.einsum("fqc,fq->c", tr, self.jxw, precision=_PREC)
 
     def force(self, solution) -> np.ndarray:
         """Total force vector exerted BY the fluid ON the boundary (DFG sign:
@@ -190,7 +192,7 @@ def divergence_l2(ctx, solution) -> float:
 
     uc = _gather_velocity(ctx, jnp.asarray(solution))
     Gp = _phys_grads(ctx)
-    gu = jnp.einsum("cdb,cbqa->cqda", uc, Gp)
+    gu = jnp.einsum("cdb,cbqa->cqda", uc, Gp, precision=_PREC)
     div = jnp.einsum("cqdd->cq", gu)
     val = jnp.sum(div**2 * ctx.jxw)
     if ctx.axis_name:

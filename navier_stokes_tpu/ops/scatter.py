@@ -1,10 +1,9 @@
 """Scatter-free global assembly: transpose gather maps.
 
-THE central TPU performance trick of this framework (SURVEY §7 "hard parts"
-#1: scatter/assembly on TPU).  deal.II assembles with random scatter-add
-(``matrix.add(dof_indices, cell_matrix)``, cpp:340); XLA lowers the
-equivalent ``segment_sum`` to a serialized scatter-add, which is the
-bottleneck of every operator application on TPU.
+An alternative to the scatter-add of element contributions (SURVEY §7
+"hard parts" #1).  deal.II assembles with random scatter-add
+(``matrix.add(dof_indices, cell_matrix)``, cpp:340); the XLA equivalent is
+``segment_sum``, a scatter-add.
 
 Instead we precompute, per global DoF, the (padded) list of flat positions of
 its per-cell contributions.  The reduction
@@ -15,7 +14,7 @@ becomes the gather + dense row-sum
 
     y = yl_ext[gather_idx].sum(axis=1)        # [n, K] gather, K ~ max valence
 
-which is fully vectorized on the VPU with perfectly coalesced reads.  K is
+which is a plain gather followed by a dense reduction.  K is
 the max DoF valence (number of cells sharing a DoF; ~6-8 for 2D vertex DoFs,
 2 for edge DoFs).  Padding rows point at a zero sentinel appended to the
 source.

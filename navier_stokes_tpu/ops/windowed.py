@@ -1,57 +1,46 @@
-"""Windowed matrix-free operator application: the TPU-native SpMV (v3).
+"""Windowed matrix-free operator application: the solver's hot SpMV.
 
-THE hot kernel of the framework (GMRES tangent solves are ~200 operator
-applications per Newton step, SURVEY §3.3).  Irregular gathers/scatters cost
-~7 ns/element on TPU, so the flat ``x[cell_dofs]`` + ``segment_sum`` form is
-two orders of magnitude off the HBM roofline.  This module replaces BOTH with
-dense, tileable primitives:
+GMRES tangent solves apply the operator ~200 times per Newton step (SURVEY
+§3.3), and every assembly gathers the solution at cell dofs and scatters the
+residual back.  This module does all three over a BLOCKED layout, so that a
+cell only ever touches a short window of the global vector and the SPMD
+path exchanges O(halo) data instead of whole vectors:
 
   1. DoFs carry a blocked locality renumbering (fem/dofs.renumber_blocked):
      block b OWNS the contiguous scalar ranges [b*OW, (b+1)*OW) and every
      cell's dofs span O(sqrt(n)) positions.
   2. Block b's WINDOW is the (2h+1)-block neighborhood around its owned
      range (h = measured halo reach in blocks): window extraction from the
-     global vector is (2h+1) aligned reshapes — no gather.
+     global vector is (2h+1) shifted slices.
   3. Every cell is assigned to exactly ONE home block (the block of its
-     dof-span midpoint) — v3 change: v2 duplicated boundary cells into every
-     block they touched (1.5-2x extra matrix traffic and compute).  Cells are
-     SORTED within each block by window position and processed in lane-chunks
-     of Bc cells.  Each chunk sees only a narrow SUBWINDOW (offset
-     precomputed on host, 8-row aligned), so the one-hot selection that turns
-     gather/scatter into MXU matmuls contracts over a short [RVc, 128] slab
-     instead of the whole window:
-
-         gather:   T = x_subwindow_parts @ onehot_lo      (K = 128)
-                   x_l = sum_rows(T * onehot_hi)
-         scatter:  acc += (onehot_hi * y_parts) @ onehot_lo^T   (K = Bc)
-
-     The value operand is split into `passes` bf16 terms (Mosaic matmuls
-     have no multi-pass f32 mode): 3 is f32-exact, 2 keeps ~2e-5 relative
-     accuracy (plenty for rel-tol 1e-2 Krylov operators), 1 is plain bf16.
-     The passes are STACKED on the matmul M-dimension together with the
-     velocity components, so every MXU call has M = passes*dim*RVc,
-     K in {128, Bc} — full-width contractions.
-  4. Each block accumulates its cells' contributions over its WHOLE window
-     (owned + halo rows); overlapping window rows of neighboring blocks are
-     then merged by (2h+1) aligned shifted adds on the [nb, OW] planar form
-     (``_combine_windows``) — the TPU-native analogue of the reference's
-     Epetra ``compress(add)`` neighbor exchange
+     dof-span midpoint) and stores the window positions of its dofs.  Cells
+     are sorted within each block by window position, so neighboring cells
+     read and write neighboring addresses.
+  4. An apply is three plain XLA steps: one flat gather from the block
+     windows, a per-cell contraction with the element matrix (an exact
+     multiply-and-sum in x's dtype, which XLA fuses with the gather), and one
+     scatter-add into per-block window accumulators.  (On an NVIDIA GPU the
+     f32 full-system matvec runs the same three steps as one Pallas kernel,
+     ``_onepass_matvec``.)  Overlapping window rows
+     of neighboring blocks are then merged by (2h+1) shifted adds
+     (``_combine_windows``) — the analogue of the reference's Epetra
+     ``compress(add)`` neighbor exchange
      (/root/reference/src/NavierStokesSolver.cpp:345-347).  Under SPMD the
      shifted adds cross device boundaries only in the h edge blocks, so the
      collective volume is O(halo), not O(n).
 
-The operator matrix lives in "cells-on-lanes" layout A_t[j, i, c]:
+The operator matrix lives in "cells-last" layout A_t[j, i, c]:
 [nl, nli, nb*Bmax] with the (padded, block-ordered) cell axis last — the
-layout batched assembly emits directly (fem/windowed_assembly) and the kernel
-tiles without any padding waste ([*, 15, 15] arrays would inflate 9x under
-TPU (8, 128) tiling).
+layout batched assembly emits directly (fem/windowed_assembly), in which
+every per-cell read of one matrix entry is contiguous across cells.
 
-Padded cell slots carry sentinel positions (hi = RVc, lo = 128) so all their
-one-hot rows are empty: they gather zeros and scatter nothing.
+Padded cell slots carry the sentinel position W (one past the window): they
+gather zero and scatter into a dump slot that is dropped.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass, field
 
 import jax
@@ -61,61 +50,31 @@ import numpy as np
 __all__ = [
     "WindowedLayout",
     "build_windowed_layout",
-    "build_windows",
     "to_block_form",
     "windowed_matvec",
     "windowed_matvec_block",
-    "windowed_matvec_reference",
     "windowed_gather",
     "windowed_scatter",
     "slice_block",
     "block_shape",
 ]
 
-_ALIGN_ROWS = 8  # subwindow offsets in whole 8-row groups (f32 sublane tile)
-
-# Subwindow ROW-TILE of the kernels' selection phase: masks, gather slabs and
-# selection-dot outputs are built per <=RT-row tile of the subwindow instead
-# of over the whole RVc rows at once.  This bounds the kernel's VMEM high-
-# water independent of RVc — 3D refined meshes have intrinsically wide
-# numbering bandwidth (worst-case ~n^(2/3): measured RVv=160 at step-3
-# refine=2 and 360 at step-5 refine=2, where the untiled selection buffers
-# were ~33 MB and killed compilation — the round-4 "3dxl" blocker).  2D
-# subwindows (RVv<=32) fit one tile, so the tiled form emits the identical
-# single-slab program there.
-_ROW_TILE = 32
-
-
-def _row_tiles(RVc: int):
-    """Static (start, size) tiles covering RVc rows (sizes multiple of 8)."""
-    return [(s, min(_ROW_TILE, RVc - s)) for s in range(0, RVc, _ROW_TILE)]
-
 
 @jax.tree_util.register_dataclass
 @dataclass(frozen=True)
 class WindowedLayout:
     cell_ids: jax.Array  # [nb, Bmax] int32 original cell index (pad: 0)
-    # per-chunk REBASED window-local positions [nb, kpad, Bmax] (cells on
-    # lanes) split into 128-row / in-row parts (sentinel: hi = RVc, lo = 128)
-    loc_v_hi: jax.Array
-    loc_v_lo: jax.Array
-    loc_p_hi: jax.Array
-    loc_p_lo: jax.Array
-    # per-chunk subwindow ROW offsets into the full window [nb, nchunks]
-    offs_v: jax.Array
-    offs_p: jax.Array
+    # window-local positions of each cell's dofs, cells last [k, nb, Bmax];
+    # padded slots carry the sentinel W (one past the window)
+    loc_v: jax.Array
+    loc_p: jax.Array
     nb: int = field(metadata=dict(static=True))
     Bmax: int = field(metadata=dict(static=True))
-    Bc: int = field(metadata=dict(static=True))  # cells per lane-chunk
-    nchunks: int = field(metadata=dict(static=True))
+    Bc: int = field(metadata=dict(static=True))  # Bmax is a multiple of Bc
     OWv: int = field(metadata=dict(static=True))
     OWp: int = field(metadata=dict(static=True))
     hv: int = field(metadata=dict(static=True))  # halo blocks each side (v)
     hp: int = field(metadata=dict(static=True))
-    RWv: int = field(metadata=dict(static=True))  # full window rows (padded)
-    RWp: int = field(metadata=dict(static=True))
-    RVv: int = field(metadata=dict(static=True))  # subwindow rows (v)
-    RVp: int = field(metadata=dict(static=True))
     k_v: int = field(metadata=dict(static=True))  # true scalar dofs/cell (v)
     k_p: int = field(metadata=dict(static=True))
     dim: int = field(metadata=dict(static=True))
@@ -137,8 +96,21 @@ class WindowedLayout:
 
     @property
     def ncd(self) -> int:
-        """Flat padded cell count (lanes axis of A_t)."""
+        """Flat padded cell count (last axis of A_t)."""
         return self.nb * self.Bmax
+
+    @property
+    def Wv(self) -> int:
+        """Velocity window length (2h+1 blocks)."""
+        return (2 * self.hv + 1) * self.OWv
+
+    @property
+    def Wp(self) -> int:
+        return (2 * self.hp + 1) * self.OWp
+
+    def valid_slots(self) -> np.ndarray:
+        """Host mask [nb, Bmax] of the slots that hold a real cell."""
+        return np.asarray(self.loc_p)[0] < self.Wp
 
 
 def _round_up(x: int, m: int) -> int:
@@ -174,7 +146,7 @@ def build_windowed_layout(
 
 def _halo_and_loc(cell_space_dofs, cell_ids, valid, OW, nb, max_halo=6):
     """Halo width (whole blocks) from the ACTUAL reach of the listed cells,
-    plus absolute window-local positions [nb, Bmax, k]."""
+    plus absolute window-local positions [nb, Bmax, k] (-1 on padding)."""
     dofs_b = cell_space_dofs[cell_ids].astype(np.int64)  # [nb, Bmax, k]
     owned_lo = (np.arange(nb) * OW)[:, None, None]
     reach_lo = np.where(valid[:, :, None], owned_lo - dofs_b, 0).max()
@@ -186,51 +158,10 @@ def _halo_and_loc(cell_space_dofs, cell_ids, valid, OW, nb, max_halo=6):
         )
     W = (2 * h + 1) * OW
     loc = dofs_b - (owned_lo - h * OW)
-    loc[~valid] = -1  # sentinel marker (replaced after chunk rebasing)
+    loc[~valid] = -1
     if valid.any():
         assert loc[valid].min() >= 0 and loc[valid].max() < W
     return h, loc
-
-
-def _chunk_offsets(loc, valid, RW, Bc):
-    """Per-chunk subwindow row offsets + static subwindow row count.
-
-    loc: [nb, Bmax, k] absolute window positions (-1 invalid).
-    Returns (offs_rows [nb, nchunks] int32, RVc rows, loc_rebased)."""
-    nb, Bmax, k = loc.shape
-    nchunks = Bmax // Bc
-    lc = loc.reshape(nb, nchunks, Bc, k)
-    vc = valid.reshape(nb, nchunks, Bc)[:, :, :, None]
-    big = RW * 128
-    lo = np.where(vc, lc, big).min(axis=(2, 3))  # [nb, nchunks]
-    hi = np.where(vc, lc, -1).max(axis=(2, 3))
-    lo = np.where(lo == big, 0, lo)
-    off = (lo // (128 * _ALIGN_ROWS)) * (128 * _ALIGN_ROWS)
-    need = np.maximum(hi + 1 - off, 1)
-    Wc = min(int(_round_up(int(need.max()), 128 * _ALIGN_ROWS)), big)
-    off = np.minimum(off, big - Wc)  # clamp: both multiples of ALIGN
-    loc_r = np.where(loc >= 0, loc - off[:, :, None, None].repeat(Bc, 2).reshape(
-        nb, Bmax, 1), -1)
-    RVc = Wc // 128
-    if valid.any():
-        v3 = valid[:, :, None] & (loc >= 0)
-        assert loc_r[v3].min() >= 0 and loc_r[v3].max() < Wc
-    return (off // 128).astype(np.int32), RVc, loc_r
-
-
-def _split_hilo(loc_r, RVc, nb, Bmax):
-    """Split rebased positions into (hi, lo) with sentinel rows; pad the dof
-    axis to a multiple of 8; transpose to [nb, kpad, Bmax]."""
-    k = loc_r.shape[2]
-    kp = _round_up(k, 8)
-    out = np.full((nb, Bmax, kp), -1, dtype=np.int64)
-    out[:, :, :k] = loc_r
-    hi = np.where(out < 0, RVc, out // 128)
-    lo = np.where(out < 0, 128, out % 128)
-    return (
-        hi.astype(np.int32).transpose(0, 2, 1),
-        lo.astype(np.int32).transpose(0, 2, 1),
-    )
 
 
 def _build(cell_vdofs, cell_pdofs, n_vs, n_ps, dim, nb, OWv, OWp, Bc=128) -> WindowedLayout:
@@ -245,7 +176,7 @@ def _build(cell_vdofs, cell_pdofs, n_vs, n_ps, dim, nb, OWv, OWp, Bc=128) -> Win
     home = np.clip(mid // OWv, 0, nb - 1)
 
     counts = np.bincount(home, minlength=nb)
-    Bc = max(128, Bc)
+    Bc = _round_up(max(128, Bc), _ONEPASS_BLOCK)
     Bmax = _round_up(max(int(counts.max()), 1), Bc)
 
     order = np.argsort(home, kind="stable")
@@ -259,46 +190,29 @@ def _build(cell_vdofs, cell_pdofs, n_vs, n_ps, dim, nb, OWv, OWp, Bc=128) -> Win
     hv, loc_v = _halo_and_loc(cell_vdofs, cell_ids, valid, OWv, nb)
     hp, loc_p = _halo_and_loc(cell_pdofs, cell_ids, valid, OWp, nb)
 
-    # sort cells WITHIN each block by window position so lane-chunks of Bc
-    # consecutive cells span narrow subwindows (invalid slots pushed last)
-    big = (2 * hv + 1) * OWv + 1
-    key = np.where(valid, np.where(loc_v >= 0, loc_v, big).min(axis=2), big)
+    # sort cells WITHIN each block by window position (invalid slots last)
+    Wv, Wp = (2 * hv + 1) * OWv, (2 * hp + 1) * OWp
+    key = np.where(valid, np.where(loc_v >= 0, loc_v, Wv + 1).min(axis=2), Wv + 1)
     perm = np.argsort(key, axis=1, kind="stable")  # [nb, Bmax]
     rows = np.arange(nb)[:, None]
     cell_ids = cell_ids[rows, perm]
-    valid = valid[rows, perm]
     loc_v = loc_v[rows, perm]
     loc_p = loc_p[rows, perm]
 
-    nchunks = Bmax // Bc
-
-    RWv = _round_up((2 * hv + 1) * OWv // 128, _ALIGN_ROWS)
-    RWp = _round_up((2 * hp + 1) * OWp // 128, _ALIGN_ROWS)
-    offs_v, RVv, loc_v_r = _chunk_offsets(loc_v, valid, RWv, Bc)
-    offs_p, RVp, loc_p_r = _chunk_offsets(loc_p, valid, RWp, Bc)
-    lv_hi, lv_lo = _split_hilo(loc_v_r, RVv, nb, Bmax)
-    lp_hi, lp_lo = _split_hilo(loc_p_r, RVp, nb, Bmax)
+    def cells_last(loc, W):
+        return np.where(loc >= 0, loc, W).astype(np.int32).transpose(2, 0, 1)
 
     return WindowedLayout(
         cell_ids=jnp.asarray(cell_ids, dtype=jnp.int32),
-        loc_v_hi=jnp.asarray(lv_hi),
-        loc_v_lo=jnp.asarray(lv_lo),
-        loc_p_hi=jnp.asarray(lp_hi),
-        loc_p_lo=jnp.asarray(lp_lo),
-        offs_v=jnp.asarray(offs_v),
-        offs_p=jnp.asarray(offs_p),
+        loc_v=jnp.asarray(cells_last(loc_v, Wv)),
+        loc_p=jnp.asarray(cells_last(loc_p, Wp)),
         nb=nb,
         Bmax=Bmax,
         Bc=Bc,
-        nchunks=nchunks,
         OWv=OWv,
         OWp=OWp,
         hv=hv,
         hp=hp,
-        RWv=RWv,
-        RWp=RWp,
-        RVv=RVv,
-        RVp=RVp,
         k_v=k_v,
         k_p=k_p,
         dim=dim,
@@ -313,13 +227,6 @@ def _build(cell_vdofs, cell_pdofs, n_vs, n_ps, dim, nb, OWv, OWp, Bc=128) -> Win
 # ---------------------------------------------------------------------------
 
 
-def build_windows(x_space: jax.Array, nb: int, OW: int, h: int = 1) -> jax.Array:
-    """[nb, (2h+1)*OW/128, 128] sliding windows — aligned reshapes, no gather."""
-    n_pad = nb * OW
-    xp = jnp.zeros(n_pad, dtype=x_space.dtype).at[: x_space.shape[0]].set(x_space)
-    return _windows_from_ext(_pad_edges(xp.reshape(nb, OW), h), nb, OW, h)
-
-
 def _pad_edges(r: jax.Array, h: int) -> jax.Array:
     """[nb, OW] -> [nb + 2h, OW] with zero edge blocks (single-device)."""
     if h == 0:
@@ -331,7 +238,7 @@ def _pad_edges(r: jax.Array, h: int) -> jax.Array:
 def _halo_edges(r: jax.Array, h: int, axis_name: str) -> jax.Array:
     """[nb_loc, OW] -> [nb_loc + 2h, OW]: edge blocks fetched from the ring
     neighbors via ppermute (zeros at the global ends — unpaired destinations
-    receive zero).  The TPU-native ghost import of Epetra's SpMV
+    receive zero).  The ghost import of Epetra's SpMV
     (/root/reference/src/NavierStokesSolver.cpp:345-347 compress/ghost
     update): per-matvec collective volume is O(h*OW), not O(n)."""
     if h == 0:
@@ -344,25 +251,30 @@ def _halo_edges(r: jax.Array, h: int, axis_name: str) -> jax.Array:
     return jnp.concatenate([left, r, right], axis=0)
 
 
-def _windows_from_ext(x_ext: jax.Array, nb: int, OW: int, h: int) -> jax.Array:
-    """[nb + 2h, OW] edge-extended blocks -> [nb, (2h+1)*OW/128, 128]."""
-    shifts = [x_ext[s : s + nb] for s in range(2 * h + 1)]
-    W = (2 * h + 1) * OW
-    return jnp.concatenate(shifts, axis=1).reshape(nb, W // 128, 128)
+def _windows(
+    c: jax.Array, nb: int, OW: int, h: int, axis_name: str | None
+) -> jax.Array:
+    """One scalar space's planar values -> windows [nb, (2h+1)*OW].
+
+    Window row j*OW + r of block b is global row (b - h + j)*OW + r; with
+    ``axis_name`` (inside shard_map, local block range) the edge blocks come
+    from the ring neighbors."""
+    if c.shape[0] < nb * OW:  # legacy layouts pad the last block
+        c = jnp.zeros(nb * OW, c.dtype).at[: c.shape[0]].set(c)
+    r = c.reshape(nb, OW)
+    ext = _pad_edges(r, h) if axis_name is None else _halo_edges(r, h, axis_name)
+    return jnp.concatenate([ext[s : s + nb] for s in range(2 * h + 1)], axis=1)
 
 
 def _combine_windows(
     win: jax.Array, nb: int, OW: int, h: int, n: int, axis_name: str | None = None
 ) -> jax.Array:
-    """Merge per-block window accumulators into the global vector.
-
-    win: [nb, RW, 128] — window row j*OW + r of block b is global row
-    (b - h + j)*OW + r.  (2h+1) aligned shifted adds; under SPMD the h edge
-    rows of the local accumulator are the neighbor devices' contributions,
-    exported via ppermute (the reverse of ``_halo_edges``: the Epetra
-    ``compress(add)`` neighbor reduction, O(h*OW) collective volume)."""
-    W = (2 * h + 1) * OW
-    seg = win.reshape(nb, -1)[:, :W].reshape(nb, 2 * h + 1, OW)
+    """Merge per-block window accumulators [nb, (2h+1)*OW] into the global
+    vector: (2h+1) shifted adds.  Under SPMD the h edge rows of the local
+    accumulator are the neighbor devices' contributions, exported via
+    ppermute (the reverse of ``_halo_edges``: the Epetra ``compress(add)``
+    neighbor reduction, O(h*OW) collective volume)."""
+    seg = win.reshape(nb, 2 * h + 1, OW)
     acc = jnp.zeros((nb + 2 * h, OW), dtype=win.dtype)
     for j in range(2 * h + 1):
         acc = acc.at[j : j + nb].add(seg[:, j])
@@ -380,51 +292,103 @@ def _combine_windows(
     return acc[h : h + nb].reshape(-1)[:n]
 
 
-def _split_spaces(x: jax.Array, lay: WindowedLayout):
-    comps = [x[c * lay.n_vs : (c + 1) * lay.n_vs] for c in range(lay.dim)]
-    p = x[lay.n_u : lay.n_u + lay.n_ps]
-    return comps, p
+def _components(lay: WindowedLayout, spaces: str):
+    """Scalar components of ``spaces`` ("v", "p" or "vp") in planar order:
+    (segment length, OW, h, positions [k, nb, Bmax])."""
+    comps = []
+    if "v" in spaces:
+        comps += [(lay.n_vs, lay.OWv, lay.hv, lay.loc_v)] * lay.dim
+    if "p" in spaces:
+        comps.append((lay.n_ps, lay.OWp, lay.hp, lay.loc_p))
+    return comps
 
 
-def _all_windows(lay: WindowedLayout, x: jax.Array, axis_name: str | None = None):
-    """Padded per-space windows [nb, RW, 128] for the kernels.
+def _flat_index(loc: jax.Array, W: int) -> jax.Array:
+    """Window positions [k, nb, Bmax] -> indices into the flattened
+    [nb, W + 1] window array whose extra column is the sentinel slot."""
+    base = jnp.arange(loc.shape[1], dtype=loc.dtype) * (W + 1)
+    return loc + base[None, :, None]
 
-    With ``axis_name`` (inside shard_map, lay = LOCAL layout, x = local
-    planar chunk) the edge blocks come from the ring neighbors."""
-    comps, p = _split_spaces(x, lay)
 
-    def windows(c, OW, h):
-        r = c.reshape(lay.nb, OW)  # local n must be exactly nb*OW when sharded
-        ext = _pad_edges(r, h) if axis_name is None else _halo_edges(r, h, axis_name)
-        return _windows_from_ext(ext, lay.nb, OW, h)
-
-    if axis_name is None:
-        xw = [build_windows(c, lay.nb, lay.OWv, lay.hv) for c in comps] + [
-            build_windows(p, lay.nb, lay.OWp, lay.hp)
-        ]
-    else:
-        xw = [windows(c, lay.OWv, lay.hv) for c in comps] + [
-            windows(p, lay.OWp, lay.hp)
-        ]
-    out = []
-    for w, RW in zip(xw, [lay.RWv] * lay.dim + [lay.RWp]):
-        if w.shape[1] != RW:
-            w = jnp.zeros((lay.nb, RW, 128), w.dtype).at[:, : w.shape[1], :].set(w)
-        out.append(w)
+def _window_sources(lay: WindowedLayout, x: jax.Array, spaces: str, axis_name):
+    """Per scalar component of ``spaces``: its windows with a zero sentinel
+    column, flattened to [nb * (W + 1)]."""
+    out, i0 = [], 0
+    for n, OW, h, _ in _components(lay, spaces):
+        w = _windows(x[i0 : i0 + n], lay.nb, OW, h, axis_name)
+        i0 += n
+        out.append(jnp.concatenate([w, jnp.zeros((lay.nb, 1), w.dtype)], axis=1).reshape(-1))
     return out
 
 
-def to_block_form(lay: WindowedLayout, cell_mat: jax.Array) -> jax.Array:
-    """Natural cell matrices [nc, nl, nl] -> A_t [nl, nli, nb*Bmax].
+def _merge(lay: WindowedLayout, accs, spaces: str, axis_name) -> jax.Array:
+    """Per-component flat window accumulators [nb * (W + 1)] -> the planar
+    segment of ``spaces`` (sentinel column dropped, overlaps merged)."""
+    ys = []
+    for acc, (n, OW, h, _) in zip(accs, _components(lay, spaces)):
+        W = (2 * h + 1) * OW
+        win = acc.reshape(lay.nb, W + 1)[:, :W]
+        ys.append(_combine_windows(win, lay.nb, OW, h, n, axis_name))
+    return jnp.concatenate(ys) if len(ys) > 1 else ys[0]
 
-    A_t[j, i, s] = cell_mat[cell_ids_flat[s], i, j] (row axis i padded to
-    nli).  Assembly can also emit this layout directly
-    (fem/windowed_assembly) — this helper is the compatibility path.
+
+def _gather(lay: WindowedLayout, x: jax.Array, spaces: str, axis_name) -> jax.Array:
+    """X[l, s] = x[dof_l of cell s] for the dofs of ``spaces``: [n, ncd].
+
+    One flat 1-D gather per component from its zero-extended windows; no
+    per-cell copy of a window is ever formed."""
+    cols = [
+        src[_flat_index(loc, src.shape[0] // lay.nb - 1)].reshape(loc.shape[0], -1)
+        for src, (_, _, _, loc) in zip(
+            _window_sources(lay, x, spaces, axis_name), _components(lay, spaces)
+        )
+    ]
+    return jnp.concatenate(cols, axis=0)
+
+
+def _scatter(lay: WindowedLayout, R: jax.Array, spaces: str, axis_name) -> jax.Array:
+    """y = sum_cells P_c^T R_c over the dofs of ``spaces`` (rows of R in the
+    same order as ``_gather``): scatter-add into per-block windows, then
+    merge the overlaps."""
+    accs, r0 = [], 0
+    for n, OW, h, loc in _components(lay, spaces):
+        k = loc.shape[0]
+        W = (2 * h + 1) * OW
+        acc = jnp.zeros(lay.nb * (W + 1), dtype=R.dtype)
+        accs.append(acc.at[_flat_index(loc, W).reshape(-1)].add(R[r0 : r0 + k].reshape(-1)))
+        r0 += k
+    return _merge(lay, accs, spaces, axis_name)
+
+
+def _contract(A: jax.Array, X: jax.Array) -> jax.Array:
+    """y[i, s] = sum_j A[j, i, s] X[j, s] in X's dtype (A may be stored
+    narrower and is widened on read).  A multiply and a sum, not a dot: no
+    reduced-precision matrix unit can take part, so f32 stays f32."""
+    return (A.astype(X.dtype) * X[:, None, :]).sum(axis=0)
+
+
+def windowed_gather(
+    lay: WindowedLayout, x: jax.Array, *, axis_name: str | None = None
+) -> jax.Array:
+    """X[l, s] = x[dof_l of cell s] — [nl, nb*Bmax].
+
+    Batched assembly consumes it to evaluate solution fields at cells.
+    axis_name: set inside shard_map with a LOCAL layout (contiguous block
+    range per device) — windows then fetch only the h edge blocks from the
+    ring neighbors (O(halo) collectives).
     """
-    nl = cell_mat.shape[1]
-    g = cell_mat[lay.cell_ids.reshape(-1)]  # [ncd, nl, nl]
-    A_t = jnp.zeros((nl, lay.nli, lay.ncd), dtype=cell_mat.dtype)
-    return A_t.at[:, :nl, :].set(g.transpose(2, 1, 0))
+    return _gather(lay, x, "vp", axis_name)
+
+
+def windowed_scatter(
+    lay: WindowedLayout, R: jax.Array, *, axis_name: str | None = None
+) -> jax.Array:
+    """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax].
+
+    Each block accumulates its whole window, then overlaps merge via
+    ``_combine_windows``.  Returns the planar vector [n_u + n_ps].
+    """
+    return _scatter(lay, R, "vp", axis_name)
 
 
 def windowed_matvec(
@@ -432,152 +396,89 @@ def windowed_matvec(
     A_t: jax.Array,
     x: jax.Array,
     *,
-    passes: int = 3,
     axis_name: str | None = None,
-    interpret: bool = False,
 ) -> jax.Array:
-    """y = A x via the windowed Pallas kernel (no Dirichlet handling here).
+    """y = A x (no Dirichlet handling here).
 
-    A_t: [nl, nli, nb*Bmax] cells-on-lanes block-ordered matrices
-    (``to_block_form`` or windowed assembly output).
-    passes: bf16 value-split terms (3 = f32-exact, 2 ~ 2e-5 relative, 1 =
-    bf16) applied to BOTH the gathered x and the scattered products.
-    axis_name: set inside shard_map with a LOCAL layout (contiguous block
-    range per device) — windows/combine then exchange only the h edge blocks
-    with the ring neighbors (O(halo) collectives).
+    A_t: [nl, nli, nb*Bmax] cells-last block-ordered matrices
+    (``to_block_form`` or windowed assembly output), possibly stored
+    narrower than x; the result has x's dtype.
+
+    An f32 apply of a 2D element on an NVIDIA GPU runs the one-pass kernel
+    (``_onepass_matvec``); every other case runs the plain gather /
+    contract / scatter-add path, which is also its reference.
     """
-    if jax.default_backend() == "cpu" and not interpret:
-        # the Pallas TPU kernel has no CPU lowering; use the same-math
-        # reference (tests compare kernel-vs-reference separately)
-        return windowed_matvec_reference(lay, A_t, x, axis_name=axis_name)
-    xw = _all_windows(lay, x, axis_name)
-    outs = _pallas_run(lay, "matvec", A_t, xw, passes, interpret)
-    ys = [
-        _combine_windows(o, lay.nb, lay.OWv, lay.hv, lay.n_vs, axis_name)
-        for o in outs[: lay.dim]
-    ]
-    yp = _combine_windows(outs[-1], lay.nb, lay.OWp, lay.hp, lay.n_ps, axis_name)
-    return jnp.concatenate(ys + [yp])
-
-
-def windowed_gather(
-    lay: WindowedLayout,
-    x: jax.Array,
-    *,
-    passes: int = 3,
-    axis_name: str | None = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """X[l, s] = x[dof_l of cell s] — [nli, nb*Bmax].
-
-    The gather half of the matvec as a standalone kernel: batched assembly
-    consumes it to evaluate solution fields at cells without any irregular
-    HBM gather.  Padded rows l >= nl are zero.
-    """
-    if jax.default_backend() == "cpu" and not interpret:
-        return _gather_reference(lay, x, axis_name=axis_name)
-    xw = _all_windows(lay, x, axis_name)
-    return _pallas_run(lay, "gather", None, xw, passes, interpret)
-
-
-def windowed_scatter(
-    lay: WindowedLayout,
-    R: jax.Array,
-    *,
-    passes: int = 3,
-    axis_name: str | None = None,
-    interpret: bool = False,
-) -> jax.Array:
-    """y = sum_cells P_c^T R_c for per-cell row values R [>=nl, nb*Bmax].
-
-    The scatter half of the matvec: each block accumulates its whole window,
-    then overlaps merge via ``_combine_windows``.  Returns the padded planar
-    vector [dim*nb*OWv + nb*OWp] truncated to [n_u + n_ps].
-    """
-    if jax.default_backend() == "cpu" and not interpret:
-        return _scatter_reference(lay, R, axis_name=axis_name)
-    outs = _pallas_run(lay, "scatter", R, None, passes, interpret)
-    ys = [
-        _combine_windows(o, lay.nb, lay.OWv, lay.hv, lay.n_vs, axis_name)
-        for o in outs[: lay.dim]
-    ]
-    yp = _combine_windows(outs[-1], lay.nb, lay.OWp, lay.hp, lay.n_ps, axis_name)
-    return jnp.concatenate(ys + [yp])
-
-
-# ---------------------------------------------------------------------------
-# pure-jnp references (CPU tests / CPU fallback)
-# ---------------------------------------------------------------------------
-
-
-def _abs_loc(lay: WindowedLayout, hi, lo, offs, RVc, RW, k):
-    """Absolute window positions [nb, Bmax, k] from rebased (hi, lo) + offs;
-    sentinel slots map to RW*128 (one past the padded window)."""
-    h = hi.transpose(0, 2, 1)[:, :, :k].astype(jnp.int32)
-    l = lo.transpose(0, 2, 1)[:, :, :k].astype(jnp.int32)
-    off = jnp.repeat(offs, lay.Bc, axis=1)[:, :, None]  # [nb, Bmax, 1]
-    loc = (off + h) * 128 + l
-    return jnp.where((h >= RVc) | (l >= 128), RW * 128, loc)
-
-
-def _gather_reference(
-    lay: WindowedLayout, x: jax.Array, axis_name: str | None = None
-) -> jax.Array:
-    xw = _all_windows(lay, x, axis_name)
-    lv = _abs_loc(lay, lay.loc_v_hi, lay.loc_v_lo, lay.offs_v, lay.RVv, lay.RWv, lay.k_v)
-    lp = _abs_loc(lay, lay.loc_p_hi, lay.loc_p_lo, lay.offs_p, lay.RVp, lay.RWp, lay.k_p)
-    cols = []
-    for comp in range(lay.dim):
-        w = xw[comp].reshape(lay.nb, -1)
-        w = jnp.concatenate([w, jnp.zeros((lay.nb, 1), w.dtype)], axis=1)
-        cols.append(jnp.take_along_axis(w[:, None, :].repeat(lay.Bmax, 1), lv, axis=2))
-    wp = xw[-1].reshape(lay.nb, -1)
-    wp = jnp.concatenate([wp, jnp.zeros((lay.nb, 1), wp.dtype)], axis=1)
-    cols.append(jnp.take_along_axis(wp[:, None, :].repeat(lay.Bmax, 1), lp, axis=2))
-    X = jnp.concatenate(cols, axis=2)  # [nb, Bmax, nl]
-    Xp = jnp.zeros((lay.nli, lay.ncd), dtype=x.dtype)
-    return Xp.at[: lay.nl, :].set(X.reshape(lay.ncd, lay.nl).T)
-
-
-def _scatter_reference(
-    lay: WindowedLayout, R: jax.Array, axis_name: str | None = None
-) -> jax.Array:
-    lv = _abs_loc(lay, lay.loc_v_hi, lay.loc_v_lo, lay.offs_v, lay.RVv, lay.RWv, lay.k_v)
-    lp = _abs_loc(lay, lay.loc_p_hi, lay.loc_p_lo, lay.offs_p, lay.RVp, lay.RWp, lay.k_p)
-    Rn = R[: lay.nl].T.reshape(lay.nb, lay.Bmax, lay.nl)
-
-    def scatter_space(loc, vals, OW, h, n, RW):
-        # accumulate per-block WINDOWS (same semantics as the kernel: one
-        # extra dump column absorbs sentinel positions RW*128), then merge
-        # overlaps — sharded-aware via _combine_windows
-        flat = jnp.arange(lay.nb)[:, None, None] * (RW * 128 + 1) + jnp.minimum(
-            loc, RW * 128
-        )
-        win = jnp.zeros(lay.nb * (RW * 128 + 1), dtype=vals.dtype)
-        win = win.at[flat.reshape(-1)].add(vals.reshape(-1))
-        win = win.reshape(lay.nb, RW * 128 + 1)[:, : RW * 128].reshape(lay.nb, RW, 128)
-        return _combine_windows(win, lay.nb, OW, h, n, axis_name)
-
-    ys = [
-        scatter_space(
-            lv, Rn[:, :, c * lay.k_v : (c + 1) * lay.k_v], lay.OWv, lay.hv,
-            lay.n_vs, lay.RWv,
-        )
-        for c in range(lay.dim)
-    ]
-    yp = scatter_space(
-        lp, Rn[:, :, lay.dim * lay.k_v :], lay.OWp, lay.hp, lay.n_ps, lay.RWp
+    plain = functools.partial(windowed_matvec_block, axis_name=axis_name)
+    if x.dtype != jnp.float32 or lay.nl > _ONEPASS_MAX_NL:
+        return plain(lay, A_t, x)
+    return jax.lax.platform_dependent(
+        lay, A_t, x,
+        cuda=functools.partial(_onepass_matvec, axis_name=axis_name),
+        default=plain,
     )
-    return jnp.concatenate(ys + [yp])
 
 
-def windowed_matvec_reference(
-    lay: WindowedLayout, A_t: jax.Array, x: jax.Array, axis_name: str | None = None
-) -> jax.Array:
-    """Pure-jnp same-math reference (CPU tests; uses real gathers)."""
-    X = _gather_reference(lay, x, axis_name)  # [nli, ncd]
-    yl = jnp.einsum("jis,js->is", A_t[:, : lay.nl, :], X[: lay.nl])
-    return _scatter_reference(lay, yl, axis_name)
+_ONEPASS_BLOCK = 128  # cells per program; Bmax is a multiple of it
+# the kernel unrolls nl^2 loads: the 2D P2/P1 element (nl = 15) is where it
+# was measured faster; the 3D one (nl = 34) took 203 s to compile on an H100
+_ONEPASS_MAX_NL = 16
+
+
+def _onepass_matvec(lay, A_t, x, *, axis_name=None, block: int = _ONEPASS_BLOCK):
+    """Full-system f32 y = A x in one Pallas (Triton) pass.
+
+    XLA runs the plain path as one scatter fusion per vector component, each
+    recomputing its rows' gathers and contractions per update; on an H100
+    that reached ~40% of a plain copy's bandwidth (PERF.md).  Here each
+    program takes ``block`` consecutive cells of one layout block, gathers
+    their dofs once into registers, contracts with the cells' matrices and
+    atomically adds every row into the window accumulators, which merge as
+    in the plain path.  The atomic order varies, so results agree with the
+    plain path to f32 rounding, not bitwise.
+    """
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import triton as plt
+
+    dim, k_v, k_p, nb, nl = lay.dim, lay.k_v, lay.k_p, lay.nb, lay.nl
+    srcs = _window_sources(lay, x, "vp", axis_name)
+    sizes = [s_.shape[0] for s_ in srcs]
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+    comp_loc = [0] * (dim * k_v) + [1] * k_p  # which position table per row
+    comp_row = [l for _ in range(dim) for l in range(k_v)] + list(range(k_p))
+    comp_of = [c for c in range(dim) for _ in range(k_v)] + [dim] * k_p
+    Wp1 = [sz // nb for sz in sizes]  # window length + sentinel, per component
+
+    def kernel(A_ref, lv_ref, lp_ref, src_ref, _zero_ref, out_ref):
+        pid = pl.program_id(0)
+        cells = pl.ds(pid * block, block)
+        b = (pid * block) // lay.Bmax
+        addr = []
+        for r in range(nl):
+            ref = lv_ref if comp_loc[r] == 0 else lp_ref
+            c = comp_of[r]
+            addr.append(offsets[c] + b * Wp1[c] + ref[comp_row[r], cells])
+        xs = [src_ref[a] for a in addr]
+        for i in range(nl):
+            y = xs[0] * A_ref[0, i, cells].astype(jnp.float32)
+            for j in range(1, nl):
+                y = y + xs[j] * A_ref[j, i, cells].astype(jnp.float32)
+            plt.atomic_add(out_ref, addr[i], y)
+
+    src = jnp.concatenate(srcs)
+    out = pl.pallas_call(
+        kernel,
+        out_shape=jax.ShapeDtypeStruct(src.shape, jnp.float32),
+        grid=(lay.ncd // block,),
+        input_output_aliases={4: 0},
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=4, num_stages=1),
+        name="windowed_matvec_onepass",
+    )(
+        A_t, lay.loc_v.reshape(k_v, -1), lay.loc_p.reshape(k_p, -1), src,
+        jnp.zeros(src.shape, jnp.float32),
+    )
+    accs = [out[o : o + sz] for o, sz in zip(offsets, sizes)]
+    return _merge(lay, accs, "vp", axis_name)
 
 
 # ---------------------------------------------------------------------------
@@ -585,15 +486,16 @@ def windowed_matvec_reference(
 # ---------------------------------------------------------------------------
 
 
+def _n_dofs(lay: WindowedLayout, spaces: str) -> int:
+    """Dofs per cell of ``spaces``."""
+    return (lay.dim * lay.k_v if "v" in spaces else 0) + (
+        lay.k_p if "p" in spaces else 0
+    )
+
+
 def block_shape(lay: WindowedLayout, in_spaces: str, out_spaces: str) -> tuple[int, int]:
     """(n_in, n_out_padded) of a sub-block operator A_sub[j_in, i_out, ncd]."""
-    n_in = (lay.dim * lay.k_v if "v" in in_spaces else 0) + (
-        lay.k_p if "p" in in_spaces else 0
-    )
-    n_out = (lay.dim * lay.k_v if "v" in out_spaces else 0) + (
-        lay.k_p if "p" in out_spaces else 0
-    )
-    return n_in, _round_up(n_out, 8)
+    return _n_dofs(lay, in_spaces), _round_up(_n_dofs(lay, out_spaces), 8)
 
 
 def slice_block(lay: WindowedLayout, A_t: jax.Array, in_spaces: str, out_spaces: str) -> jax.Array:
@@ -621,616 +523,34 @@ def windowed_matvec_block(
     *,
     in_spaces: str = "vp",
     out_spaces: str = "vp",
-    passes: int = 3,
     axis_name: str | None = None,
-    interpret: bool = False,
 ) -> jax.Array:
     """y = A_sub x for a sub-block operator at proportional cost.
 
-    A_sub: [n_in, n_out_pad, ncd] (``slice_block`` of the tangent, or a
-    dedicated assembled block like the pressure Laplacian Kp_t).
+    A_sub: [n_in, >=n_out, ncd] (``slice_block`` of the tangent, or a
+    dedicated assembled block like the pressure Laplacian Kp_t), possibly
+    stored narrower than x.
     x: planar segment of the in-spaces ("v" -> [dim*n_vs], "p" -> [n_ps],
-    "vp" -> full).  Returns the out-spaces segment.
+    "vp" -> full).  Returns the out-spaces segment, in x's dtype.
 
-    The cost driver is the one-hot selection over (space, dof) lanes, so a
-    "p"->"p" solve (k_p dofs) costs ~k_p/(dim*k_v + k_p) of the full matvec —
-    what makes Cahouet-Chabard pressure-Poisson sweeps affordable.
+    A "p"->"p" apply gathers, multiplies and scatters only the k_p pressure
+    dofs of each cell, ~(k_p/nl)^2 of the full matvec's matrix bytes — what
+    makes Cahouet-Chabard pressure-Poisson sweeps affordable.
     """
     assert in_spaces in ("v", "p", "vp") and out_spaces in ("v", "p", "vp")
-    if in_spaces == "vp" and out_spaces == "vp":
-        assert A_sub.dtype == x.dtype, "full-system matvec needs matching dtypes"
-        return windowed_matvec(
-            lay, A_sub, x, passes=passes, axis_name=axis_name, interpret=interpret
-        )
-    if jax.default_backend() == "cpu" and not interpret:
-        return _block_reference(lay, A_sub, x, in_spaces, out_spaces, axis_name)
-    xw = _block_windows(lay, x, in_spaces, axis_name)
-    outs = _pallas_block(lay, A_sub, xw, in_spaces, out_spaces, passes, interpret)
-    return _block_combine(lay, outs, out_spaces, axis_name)
+    X = _gather(lay, x, in_spaces, axis_name)
+    yl = _contract(A_sub[:, : _n_dofs(lay, out_spaces)], X)
+    return _scatter(lay, yl, out_spaces, axis_name)
 
 
-def _block_windows(lay, x, in_spaces, axis_name):
-    if in_spaces == "vp":
-        return _all_windows(lay, x, axis_name)
+def to_block_form(lay: WindowedLayout, cell_mat: jax.Array) -> jax.Array:
+    """Natural cell matrices [nc, nl, nl] -> A_t [nl, nli, nb*Bmax].
 
-    def windows(c, OW, h, RW):
-        r = c.reshape(lay.nb, OW)
-        ext = _pad_edges(r, h) if axis_name is None else _halo_edges(r, h, axis_name)
-        w = _windows_from_ext(ext, lay.nb, OW, h)
-        if w.shape[1] != RW:
-            w = jnp.zeros((lay.nb, RW, 128), w.dtype).at[:, : w.shape[1], :].set(w)
-        return w
-
-    if in_spaces == "v":
-        return [
-            windows(x[c * lay.n_vs : (c + 1) * lay.n_vs], lay.OWv, lay.hv, lay.RWv)
-            for c in range(lay.dim)
-        ]
-    return [windows(x[: lay.n_ps], lay.OWp, lay.hp, lay.RWp)]
-
-
-def _block_combine(lay, outs, out_spaces, axis_name):
-    ys = []
-    if "v" in out_spaces:
-        ys += [
-            _combine_windows(o, lay.nb, lay.OWv, lay.hv, lay.n_vs, axis_name)
-            for o in outs[: lay.dim]
-        ]
-    if "p" in out_spaces:
-        ys.append(_combine_windows(outs[-1], lay.nb, lay.OWp, lay.hp, lay.n_ps, axis_name))
-    return jnp.concatenate(ys) if len(ys) > 1 else ys[0]
-
-
-def _block_reference(lay, A_sub, x, in_spaces, out_spaces, axis_name):
-    """Pure-jnp same-math reference for the block matvec (CPU path)."""
-    nvl = lay.dim * lay.k_v
-    n_loc = lay.dim * lay.n_vs + lay.n_ps
-    if in_spaces == "v":
-        xf = jnp.zeros(n_loc, x.dtype).at[: lay.dim * lay.n_vs].set(x)
-    elif in_spaces == "p":
-        xf = jnp.zeros(n_loc, x.dtype).at[lay.dim * lay.n_vs :].set(x)
-    else:
-        xf = x
-    X = _gather_reference(lay, xf, axis_name)  # [nli, ncd]
-    jsl = {"v": slice(0, nvl), "p": slice(nvl, lay.nl), "vp": slice(0, lay.nl)}
-    n_in = jsl[in_spaces].stop - jsl[in_spaces].start
-    # A_sub may be stored narrower than x (bf16 precond blocks); widen like
-    # the kernel does on read
-    yl = jnp.einsum("jis,js->is", A_sub.astype(x.dtype), X[jsl[in_spaces]])
-    # place out rows into the full local layout for the shared scatter
-    R = jnp.zeros((lay.nli, lay.ncd), dtype=yl.dtype)
-    osl = jsl[out_spaces]
-    R = R.at[osl].set(yl[: osl.stop - osl.start])
-    yf = _scatter_reference(lay, R, axis_name)
-    if out_spaces == "v":
-        return yf[: lay.dim * lay.n_vs]
-    if out_spaces == "p":
-        return yf[lay.dim * lay.n_vs :]
-    return yf
-
-
-def _pallas_block(lay, A_sub, xw, in_spaces, out_spaces, passes, interpret):
-    """Space-selective matvec kernel (same algorithm as _pallas_run's matvec
-    mode, restricted to the chosen input/output spaces).
-
-    Deliberately NOT unified with _pallas_run: with in/out="vp" this kernel
-    is bit-identical to the matvec mode (checked), but routing the flagship
-    full-system matvec through here would need a slice_block(A_t,"vp","vp")
-    producing a full copy of the multi-hundred-MB A buffer per call.  The
-    preconditioners that use this kernel slice ONCE per Newton iteration and
-    amortize the copy over the whole Krylov solve."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    P = int(passes)
-    dim, nb, Bc, nchunks = lay.dim, lay.nb, lay.Bc, lay.nchunks
-    k_v, k_p = lay.k_v, lay.k_p
-    RVv, RVp, RWv, RWp = lay.RVv, lay.RVp, lay.RWv, lay.RWp
-    kvp = lay.loc_v_hi.shape[1]
-    kpp = lay.loc_p_hi.shape[1]
-    # compute dtype follows x; A_sub may be stored NARROWER (bf16 blocks on
-    # the f32 path: KrylovConfig.precond_block_dtype halves the dominant
-    # preconditioner HBM traffic) — its rows are widened on read in VMEM
-    dtype = xw[0].dtype
-    mdt = jnp.bfloat16 if dtype == jnp.float32 else dtype
-    in_v, in_p = "v" in in_spaces, "p" in in_spaces
-    out_v, out_p = "v" in out_spaces, "p" in out_spaces
-    n_in, n_out_pad = block_shape(lay, in_spaces, out_spaces)
-    nvl = dim * k_v
-    nP = 1 if dtype != jnp.float32 else P
-
-    def _dot(a, bop, dims):
-        return jax.lax.dot_general(a, bop, dims, preferred_element_type=dtype)
-
-    def splitP(v):
-        if dtype != jnp.float32:
-            return [v]
-        if P == 1:
-            return [v.astype(mdt)]
-        t1 = v.astype(jnp.bfloat16).astype(dtype)
-        if P == 2:
-            return [t1.astype(mdt), (v - t1).astype(mdt)]
-        r = v - t1
-        t2 = r.astype(jnp.bfloat16).astype(dtype)
-        return [t1.astype(mdt), t2.astype(mdt), (r - t2).astype(mdt)]
-
-    n_xin = (dim if in_v else 0) + (1 if in_p else 0)
-    n_yout = (dim if out_v else 0) + (1 if out_p else 0)
-
-    def kernel(offv_ref, offp_ref, lvh_ref, lvl_ref, lph_ref, lpl_ref, *rest):
-        A_ref = rest[0]
-        x_refs = rest[1 : 1 + n_xin]
-        y_refs = rest[1 + n_xin : 1 + n_xin + n_yout]
-        acc_refs = rest[1 + n_xin + n_yout :]
-        b = pl.program_id(0)
-        c = pl.program_id(1)
-        offrv = pl.multiple_of(offv_ref[0, 0, c], _ALIGN_ROWS)
-        offrp = pl.multiple_of(offp_ref[0, 0, c], _ALIGN_ROWS)
-        tiles_v = _row_tiles(RVv)
-        tiles_p = _row_tiles(RVp)
-
-        def hi_onehot(h_ref, l, s, sz):
-            hi = h_ref[0, l : l + 1, :]
-            ioh = s + jax.lax.broadcasted_iota(jnp.int32, (sz, Bc), 0)
-            return (hi == ioh).astype(mdt)
-
-        iol = jax.lax.broadcasted_iota(jnp.int32, (128, Bc), 0)
-        need_v = in_v or out_v
-        need_p = in_p or out_p
-        ohh_v = (
-            [
-                [hi_onehot(lvh_ref, l, s, sz) for (s, sz) in tiles_v]
-                for l in range(k_v)
-            ]
-            if need_v
-            else []
-        )
-        ohh_p = (
-            [
-                [hi_onehot(lph_ref, l, s, sz) for (s, sz) in tiles_p]
-                for l in range(k_p)
-            ]
-            if need_p
-            else []
-        )
-        OHL_v = (
-            jnp.concatenate(
-                [(lvl_ref[0, l : l + 1, :] == iol).astype(mdt) for l in range(k_v)],
-                axis=1,
-            )
-            if need_v
-            else None
-        )
-        OHL_p = (
-            jnp.concatenate(
-                [(lpl_ref[0, l : l + 1, :] == iol).astype(mdt) for l in range(k_p)],
-                axis=1,
-            )
-            if need_p
-            else None
-        )
-
-        # ---- gather inputs -> yl [n_out_pad, Bc] ---------------------------
-        yl = jnp.zeros((n_out_pad, Bc), dtype=dtype)
-
-        def gather_space(refs, offr, tiles, OHL, k, ncomp, ohh):
-            xv = [
-                [jnp.zeros((1, Bc), dtype=dtype) for _ in range(ncomp)]
-                for _ in range(k)
-            ]
-            for ti, (s, sz) in enumerate(tiles):
-                parts = []
-                for comp in range(ncomp):
-                    parts.extend(splitP(refs[comp][0, pl.ds(offr + s, sz), :]))
-                T = _dot(
-                    jnp.concatenate(parts, axis=0), OHL, (((1,), (0,)), ((), ()))
-                )
-                for l in range(k):
-                    Tl = T[:, l * Bc : (l + 1) * Bc]
-                    oh = ohh[l][ti].astype(dtype)
-                    for comp in range(ncomp):
-                        Tc = Tl[nP * comp * sz : (nP * comp + 1) * sz]
-                        for t in range(1, nP):
-                            Tc = Tc + Tl[
-                                (nP * comp + t) * sz : (nP * comp + t + 1) * sz
-                            ]
-                        xv[l][comp] = xv[l][comp] + (Tc * oh).sum(
-                            axis=0, keepdims=True
-                        )
-            return xv
-
-        if in_v:
-            xv_v = gather_space(
-                list(x_refs[:dim]), offrv, tiles_v, OHL_v, k_v, dim, ohh_v
-            )
-            for l in range(k_v):
-                for comp in range(dim):
-                    yl = yl + A_ref[comp * k_v + l].astype(dtype) * xv_v[l][comp]
-        if in_p:
-            xp_ref = x_refs[dim if in_v else 0]
-            xv_p = gather_space([xp_ref], offrp, tiles_p, OHL_p, k_p, 1, ohh_p)
-            row0 = nvl if in_v else 0
-            for l in range(k_p):
-                yl = yl + A_ref[row0 + l].astype(dtype) * xv_p[l][0]
-
-        # ---- scatter outputs ----------------------------------------------
-        sparts = splitP(yl)
-
-        @pl.when(c == 0)
-        def _zero():
-            for r in acc_refs:
-                r[:, :] = jnp.zeros_like(r)
-
-        def scatter_space(k, ohh_l, OHL, tiles, ncomp, row0, kd, accs, offr):
-            for ti, (s, sz) in enumerate(tiles):
-                cols = []
-                for l in range(k):
-                    blocks = []
-                    for comp in range(ncomp):
-                        row = row0 + comp * kd + l
-                        for t in sparts:
-                            blocks.append(ohh_l[l][ti] * t[row : row + 1, :])
-                    cols.append(jnp.concatenate(blocks, axis=0))
-                A3 = jnp.concatenate(cols, axis=1)
-                out = _dot(A3, OHL, (((1,), (1,)), ((), ())))
-                sl = (pl.ds(offr + s, sz), slice(None))
-                for comp in range(ncomp):
-                    add = out[nP * comp * sz : (nP * comp + 1) * sz]
-                    for t in range(1, nP):
-                        add = add + out[
-                            (nP * comp + t) * sz : (nP * comp + t + 1) * sz
-                        ]
-                    accs[comp][sl] = accs[comp][sl] + add
-
-        i_acc = 0
-        if out_v:
-            scatter_space(
-                k_v, ohh_v, OHL_v, tiles_v, dim, 0, k_v, list(acc_refs[:dim]), offrv
-            )
-            i_acc = dim
-        if out_p:
-            row0 = nvl if out_v else 0
-            scatter_space(
-                k_p, ohh_p, OHL_p, tiles_p, 1, row0, k_p, [acc_refs[i_acc]], offrp
-            )
-
-        @pl.when(c == nchunks - 1)
-        def _emit():
-            for i, r in enumerate(acc_refs):
-                y_refs[i][0] = r[:, :]
-
-    # per-row SMEM offset windows (see _pallas_run: whole-table windows are
-    # lane-padded to nb * 512 B per table and cap the kernel at ~1000 blocks)
-    smem = pl.BlockSpec(
-        (1, 1, nchunks), lambda b, c: (b, 0, 0), memory_space=pltpu.SMEM
-    )
-    in_specs = [
-        smem,
-        smem,
-        pl.BlockSpec((1, kvp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, kvp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, kpp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, kpp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec(
-            (n_in, n_out_pad, Bc), lambda b, c: (0, 0, b * nchunks + c),
-            memory_space=pltpu.VMEM,
-        ),
-    ]
-    inputs = [
-        lay.offs_v.reshape(nb, 1, nchunks), lay.offs_p.reshape(nb, 1, nchunks),
-        lay.loc_v_hi, lay.loc_v_lo, lay.loc_p_hi, lay.loc_p_lo,
-        A_sub,
-    ]
-    RWs = ([RWv] * dim if in_v else []) + ([RWp] if in_p else [])
-    for RW in RWs:
-        in_specs.append(
-            pl.BlockSpec((1, RW, 128), lambda b, c: (b, 0, 0), memory_space=pltpu.VMEM)
-        )
-    inputs.extend(xw)
-
-    out_specs, out_shape, scratch = [], [], []
-    if out_v:
-        out_specs += [
-            pl.BlockSpec((1, RWv, 128), lambda b, c: (b, 0, 0), memory_space=pltpu.VMEM)
-            for _ in range(dim)
-        ]
-        out_shape += [jax.ShapeDtypeStruct((nb, RWv, 128), dtype) for _ in range(dim)]
-        scratch += [pltpu.VMEM((RWv, 128), dtype) for _ in range(dim)]
-    if out_p:
-        out_specs.append(
-            pl.BlockSpec((1, RWp, 128), lambda b, c: (b, 0, 0), memory_space=pltpu.VMEM)
-        )
-        out_shape.append(jax.ShapeDtypeStruct((nb, RWp, 128), dtype))
-        scratch.append(pltpu.VMEM((RWp, 128), dtype))
-
-    outs = pl.pallas_call(
-        kernel,
-        grid=(nb, nchunks),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch,
-        interpret=interpret,
-    )(*inputs)
-    return outs if isinstance(outs, (list, tuple)) else [outs]
-
-
-# ---------------------------------------------------------------------------
-# the Pallas kernels
-# ---------------------------------------------------------------------------
-
-
-def _pallas_run(lay: WindowedLayout, mode: str, A_or_R, xw, passes, interpret):
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    P = int(passes)
-    assert P in (1, 2, 3), "passes must be 1, 2, or 3"
-    dim, nb, Bc, nchunks = lay.dim, lay.nb, lay.Bc, lay.nchunks
-    k_v, k_p, nl, nli = lay.k_v, lay.k_p, lay.nl, lay.nli
-    RVv, RVp, RWv, RWp = lay.RVv, lay.RVp, lay.RWv, lay.RWp
-    kvp = lay.loc_v_hi.shape[1]
-    kpp = lay.loc_p_hi.shape[1]
-    if mode == "matvec":
-        # compute dtype follows x; A may be stored NARROWER (bf16 operator on
-        # the f32 path: KrylovConfig.operator_dtype halves the dominant HBM
-        # stream of the outer tangent matvec) — its rows are widened on read
-        # in VMEM, so accumulation precision is unchanged
-        dtype = xw[0].dtype
-    elif mode == "scatter":
-        dtype = A_or_R.dtype
-    else:
-        dtype = xw[0].dtype
-
-    # masks and bf16 value parts are stored/multiplied in bf16 (half the VPU
-    # cost); every dot accumulates in f32 via preferred_element_type
-    mdt = jnp.bfloat16 if dtype == jnp.float32 else dtype
-
-    def _dot(a, bop, dims):
-        return jax.lax.dot_general(a, bop, dims, preferred_element_type=dtype)
-
-    def splitP(v):
-        """P bf16 terms of an f32 value (P=3 is a lossless split)."""
-        if dtype != jnp.float32:
-            return [v]  # f64 path: native-precision dots (CPU tests only)
-        if P == 1:
-            return [v.astype(mdt)]
-        t1 = v.astype(jnp.bfloat16).astype(dtype)
-        if P == 2:
-            return [t1.astype(mdt), (v - t1).astype(mdt)]
-        r = v - t1
-        t2 = r.astype(jnp.bfloat16).astype(dtype)
-        return [t1.astype(mdt), t2.astype(mdt), (r - t2).astype(mdt)]
-
-    nP = 1 if dtype != jnp.float32 else P
-
-    def kernel(offv_ref, offp_ref, lvh_ref, lvl_ref, lph_ref, lpl_ref, *rest):
-        i_r = 0
-        A_ref = R_ref = None
-        x_refs = y_refs = acc_refs = ()
-        if mode == "matvec":
-            A_ref, i_r = rest[0], 1
-        if mode == "scatter":
-            R_ref, i_r = rest[0], 1
-        if mode in ("matvec", "gather"):
-            x_refs = rest[i_r : i_r + dim + 1]
-            i_r += dim + 1
-        if mode == "gather":
-            X_ref = rest[i_r]
-        else:
-            y_refs = rest[i_r : i_r + dim + 1]
-            acc_refs = rest[i_r + dim + 1 :]
-        b = pl.program_id(0)
-        c = pl.program_id(1)
-        offrv = pl.multiple_of(offv_ref[0, 0, c], _ALIGN_ROWS)
-        offrp = pl.multiple_of(offp_ref[0, 0, c], _ALIGN_ROWS)
-        tiles_v = _row_tiles(RVv)
-        tiles_p = _row_tiles(RVp)
-
-        def hi_onehot(h_ref, l, s, sz):
-            hi = h_ref[0, l : l + 1, :]  # [1, Bc]
-            ioh = s + jax.lax.broadcasted_iota(jnp.int32, (sz, Bc), 0)
-            return (hi == ioh).astype(mdt)
-
-        # per-(dof, row-tile) hi one-hots; total size = k * RVc * Bc as
-        # before, but no single buffer spans more than _ROW_TILE rows
-        ohh_v = [
-            [hi_onehot(lvh_ref, l, s, sz) for (s, sz) in tiles_v]
-            for l in range(k_v)
-        ]
-        ohh_p = [
-            [hi_onehot(lph_ref, l, s, sz) for (s, sz) in tiles_p]
-            for l in range(k_p)
-        ]
-
-        # lo one-hots for every local dof, concatenated on lanes so the whole
-        # lo-selection of a space is ONE MXU dot per phase (per row tile)
-        iol = jax.lax.broadcasted_iota(jnp.int32, (128, Bc), 0)
-        OHL_v = jnp.concatenate(
-            [(lvl_ref[0, l : l + 1, :] == iol).astype(mdt) for l in range(k_v)],
-            axis=1,
-        )  # [128, k_v*Bc]
-        OHL_p = jnp.concatenate(
-            [(lpl_ref[0, l : l + 1, :] == iol).astype(mdt) for l in range(k_p)],
-            axis=1,
-        )
-
-        # ---- gather phase -------------------------------------------------
-        yl = None
-        if mode in ("matvec", "gather"):
-
-            def gather_space(refs, offr, tiles, OHL, k, ncomp, ohh):
-                """xv[l][comp] = [1, Bc] gathered values, accumulated over
-                row tiles: per tile, bf16 parts of the tile slab stacked on
-                rows ([ncomp*nP*sz, 128]) feed ONE lo-selection dot; the hi
-                one-hot then reduces the tile's rows."""
-                xv = [
-                    [jnp.zeros((1, Bc), dtype=dtype) for _ in range(ncomp)]
-                    for _ in range(k)
-                ]
-                for ti, (s, sz) in enumerate(tiles):
-                    parts = []
-                    for comp in range(ncomp):
-                        parts.extend(
-                            splitP(refs[comp][0, pl.ds(offr + s, sz), :])
-                        )
-                    T = _dot(
-                        jnp.concatenate(parts, axis=0), OHL,
-                        (((1,), (0,)), ((), ())),
-                    )  # [ncomp*nP*sz, k*Bc]
-                    for l in range(k):
-                        Tl = T[:, l * Bc : (l + 1) * Bc]
-                        oh = ohh[l][ti].astype(dtype)
-                        for comp in range(ncomp):
-                            Tc = Tl[nP * comp * sz : (nP * comp + 1) * sz]
-                            for t in range(1, nP):
-                                Tc = Tc + Tl[
-                                    (nP * comp + t) * sz : (nP * comp + t + 1) * sz
-                                ]
-                            xv[l][comp] = xv[l][comp] + (Tc * oh).sum(
-                                axis=0, keepdims=True
-                            )
-                return xv
-
-            xv_v = gather_space(
-                list(x_refs[:dim]), offrv, tiles_v, OHL_v, k_v, dim, ohh_v
-            )
-            xv_p = gather_space(
-                [x_refs[dim]], offrp, tiles_p, OHL_p, k_p, 1, ohh_p
-            )
-
-            if mode == "matvec":
-                yl = jnp.zeros((nli, Bc), dtype=dtype)
-            for l in range(k_v):
-                for comp in range(dim):
-                    if mode == "matvec":
-                        yl = yl + A_ref[comp * k_v + l].astype(dtype) * xv_v[l][comp]
-                    else:
-                        X_ref[comp * k_v + l : comp * k_v + l + 1, :] = xv_v[l][comp]
-            for l in range(k_p):
-                if mode == "matvec":
-                    yl = yl + A_ref[dim * k_v + l].astype(dtype) * xv_p[l][0]
-                else:
-                    X_ref[dim * k_v + l : dim * k_v + l + 1, :] = xv_p[l][0]
-            if mode == "gather":
-                for l in range(nl, nli):
-                    X_ref[l : l + 1, :] = jnp.zeros((1, Bc), dtype=dtype)
-
-        # ---- scatter phase ------------------------------------------------
-        if mode in ("matvec", "scatter"):
-            src = yl if mode == "matvec" else R_ref[:, :]
-            sparts = splitP(src)  # nP x [nli, Bc]
-
-            @pl.when(c == 0)
-            def _zero():
-                for r in acc_refs:
-                    r[:, :] = jnp.zeros_like(r)
-
-            def scatter_space(k, ohh_l, OHL, tiles, ncomp, row0, kd, accs, offr):
-                # per row tile: A3[(comp, pass, sz), (l, Bc)] = ohh * value-
-                # part; the tile's scatter is ONE K = k*Bc dot (l-sum folded
-                # in), contracting the shared lane axis of the gather's OHL
-                for ti, (s, sz) in enumerate(tiles):
-                    cols = []
-                    for l in range(k):
-                        blocks = []
-                        for comp in range(ncomp):
-                            row = row0 + comp * kd + l
-                            for t in sparts:
-                                blocks.append(ohh_l[l][ti] * t[row : row + 1, :])
-                        cols.append(jnp.concatenate(blocks, axis=0))
-                    A3 = jnp.concatenate(cols, axis=1)  # [ncomp*nP*sz, k*Bc]
-                    out = _dot(A3, OHL, (((1,), (1,)), ((), ())))
-                    sl = (pl.ds(offr + s, sz), slice(None))
-                    for comp in range(ncomp):
-                        add = out[nP * comp * sz : (nP * comp + 1) * sz]
-                        for t in range(1, nP):
-                            add = add + out[
-                                (nP * comp + t) * sz : (nP * comp + t + 1) * sz
-                            ]
-                        accs[comp][sl] = accs[comp][sl] + add
-
-            scatter_space(
-                k_v, ohh_v, OHL_v, tiles_v, dim, 0, k_v, list(acc_refs[:dim]), offrv
-            )
-            scatter_space(
-                k_p, ohh_p, OHL_p, tiles_p, 1, dim * k_v, k_p, [acc_refs[dim]], offrp
-            )
-
-            @pl.when(c == nchunks - 1)
-            def _emit():
-                for comp in range(dim):
-                    y_refs[comp][0] = acc_refs[comp][:, :]
-                y_refs[dim][0] = acc_refs[dim][:, :]
-
-    # ---- specs -------------------------------------------------------------
-    # one ROW of the offset tables per grid step: SMEM arrays are lane-padded
-    # to 128, so a whole-table (nb, nchunks) window costs nb * 512 B PER
-    # TABLE against the ~1 MB SMEM budget — with two tables that capped the
-    # kernel at ~1000 blocks (the 7.1M-DoF / step-5-3D compile failures:
-    # "Ran out of memory in memory space smem").  The tables are viewed as
-    # [nb, 1, nchunks] so the per-block window (1, 1, nchunks) satisfies the
-    # Pallas last-two-dims blocking rule with the block axis leading.
-    smem = pl.BlockSpec(
-        (1, 1, nchunks), lambda b, c: (b, 0, 0), memory_space=pltpu.SMEM
-    )
-    in_specs = [
-        smem,
-        smem,
-        pl.BlockSpec((1, kvp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, kvp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, kpp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, kpp, Bc), lambda b, c: (b, 0, c), memory_space=pltpu.VMEM),
-    ]
-    inputs = [
-        lay.offs_v.reshape(nb, 1, nchunks), lay.offs_p.reshape(nb, 1, nchunks),
-        lay.loc_v_hi, lay.loc_v_lo, lay.loc_p_hi, lay.loc_p_lo,
-    ]
-    if mode == "matvec":
-        in_specs.append(
-            pl.BlockSpec(
-                (nl, nli, Bc), lambda b, c: (0, 0, b * nchunks + c), memory_space=pltpu.VMEM
-            )
-        )
-        inputs.append(A_or_R)
-    if mode == "scatter":
-        in_specs.append(
-            pl.BlockSpec(
-                (nli, Bc), lambda b, c: (0, b * nchunks + c), memory_space=pltpu.VMEM
-            )
-        )
-        inputs.append(A_or_R)
-    if mode in ("matvec", "gather"):
-        for RW in [RWv] * dim + [RWp]:
-            in_specs.append(
-                pl.BlockSpec((1, RW, 128), lambda b, c: (b, 0, 0), memory_space=pltpu.VMEM)
-            )
-        inputs.extend(xw)
-
-    if mode == "gather":
-        out_specs = pl.BlockSpec(
-            (nli, Bc), lambda b, c: (0, b * nchunks + c), memory_space=pltpu.VMEM
-        )
-        out_shape = jax.ShapeDtypeStruct((nli, lay.ncd), dtype)
-        scratch_shapes = []
-    else:
-        out_specs = [
-            pl.BlockSpec((1, RWv, 128), lambda b, c: (b, 0, 0), memory_space=pltpu.VMEM)
-            for _ in range(dim)
-        ] + [pl.BlockSpec((1, RWp, 128), lambda b, c: (b, 0, 0), memory_space=pltpu.VMEM)]
-        out_shape = [jax.ShapeDtypeStruct((nb, RWv, 128), dtype) for _ in range(dim)] + [
-            jax.ShapeDtypeStruct((nb, RWp, 128), dtype)
-        ]
-        scratch_shapes = [pltpu.VMEM((RWv, 128), dtype) for _ in range(dim)] + [
-            pltpu.VMEM((RWp, 128), dtype)
-        ]
-
-    return pl.pallas_call(
-        kernel,
-        grid=(nb, nchunks),
-        in_specs=in_specs,
-        out_specs=out_specs,
-        out_shape=out_shape,
-        scratch_shapes=scratch_shapes,
-        interpret=interpret,
-    )(*inputs)
+    A_t[j, i, s] = cell_mat[cell_ids_flat[s], i, j] (row axis i padded to
+    nli).  Assembly can also emit this layout directly
+    (fem/windowed_assembly) — this helper is the compatibility path.
+    """
+    nl = cell_mat.shape[1]
+    g = cell_mat[lay.cell_ids.reshape(-1)]  # [ncd, nl, nl]
+    A_t = jnp.zeros((nl, lay.nli, lay.ncd), dtype=cell_mat.dtype)
+    return A_t.at[:, :nl, :].set(g.transpose(2, 1, 0))

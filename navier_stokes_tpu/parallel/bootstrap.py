@@ -1,18 +1,17 @@
 """Multi-process (multi-host) bootstrap.
 
-TPU-native equivalent of the reference's ``Utilities::MPI::MPI_InitFinalize``
+JAX equivalent of the reference's ``Utilities::MPI::MPI_InitFinalize``
 (``/root/reference/src/main.cpp:7``) + rank-0 ``ConditionalOStream``
-(``hpp:648,698``).  On a multi-host TPU slice each host process must join the
+(``hpp:648,698``).  On a multi-host cluster each host process must join the
 JAX distributed runtime before any device computation so all hosts see the
 GLOBAL device set; `shard_map` over a global mesh then spans hosts with the
-same code that runs single-host (collectives ride ICI within a slice, DCN
-across slices).
+same code that runs single-host.
 
 Single-process runs (the default, and everything this rig can exercise) are
 a strict no-op: ``initialize_distributed()`` returns False and JAX stays
 local.  Multi-host parameters come either from explicit arguments or from
 the standard environment (``JAX_COORDINATOR_ADDRESS``/``JAX_NUM_PROCESSES``/
-``JAX_PROCESS_ID``, or a TPU pod's builtin discovery where all three may be
+``JAX_PROCESS_ID``, or a cluster's builtin discovery where all three may be
 omitted).
 """
 

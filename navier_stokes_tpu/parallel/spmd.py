@@ -1,6 +1,6 @@
 """SPMD domain decomposition over a JAX device mesh.
 
-TPU-native replacement for the reference's MPI domain decomposition
+JAX replacement for the reference's MPI domain decomposition
 (``GridTools::partition_triangulation`` + ``parallel::fullydistributed::
 Triangulation``, ``/root/reference/src/NavierStokesSolver.cpp:18-21``, and the
 Epetra ghost exchange hidden in ``compress()``/SpMV, SURVEY §2 parallelism
@@ -33,20 +33,12 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..fem.assembly import FEMContext
 
-try:  # jax >= 0.6
-    from jax import shard_map as _shard_map
+from jax import shard_map as _shard_map
 
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                          check_vma=False)
 
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _shard_map_legacy
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_legacy(
-            f, mesh=mesh, in_specs=in_specs, out_specs=out_specs, check_rep=False
-        )
+def shard_map(f, mesh, in_specs, out_specs):
+    return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                      check_vma=False)
 
 
 __all__ = ["device_mesh", "morton_order", "pad_and_shard_context", "context_pspecs", "shard_map"]

@@ -1,6 +1,6 @@
 """Owned-range domain decomposition for the windowed operator (SPMD v2).
 
-TPU-native rebuild of the reference's Epetra owned/ghost vector split
+Rebuild of the reference's Epetra owned/ghost vector split
 (``/root/reference/src/NavierStokesSolver.hpp:785-794``; ghost exchange in
 ``compress()``/SpMV, ``cpp:345-347``).  Round-1 SPMD replicated every vector
 and psum-ed O(n) per matvec; this module shards everything by CONTIGUOUS
@@ -10,7 +10,7 @@ BLOCK RANGES of the windowed layout (fem/dofs.renumber_blocked):
     its slice of the planar vector is [ux_d | uy_d | (uz_d) | p_d] — the
     "device-major" distributed layout.  ``to_dist``/``from_dist`` convert
     (pure reshapes).
-  * the windowed kernels run per-shard on a LOCAL WindowedLayout (same
+  * the windowed operators run per-shard on a LOCAL WindowedLayout (same
     static geometry with nb = nb_loc); window construction and the scatter
     combine exchange only the h edge blocks via ``ppermute``
     (ops/windowed._halo_edges/_combine_windows) — O(halo) per matvec.
@@ -125,7 +125,7 @@ def from_dist(xd, dl: DistLayout):
 
 def local_layout(lay: WindowedLayout, dl: DistLayout) -> WindowedLayout:
     """The layout each device sees inside shard_map: LOCAL static sizes with
-    the GLOBAL arrays as leaves (shard_map's in_specs slice them on axis 0)."""
+    the GLOBAL arrays as leaves (shard_map's in_specs slice their block axis)."""
     return dataclasses.replace(
         lay,
         nb=dl.nb_loc,
@@ -139,8 +139,7 @@ def layout_pspecs(lay: WindowedLayout, axis: str = AXIS) -> WindowedLayout:
     sh = P(axis)
     return dataclasses.replace(
         lay,
-        cell_ids=sh, loc_v_hi=sh, loc_v_lo=sh, loc_p_hi=sh, loc_p_lo=sh,
-        offs_v=sh, offs_p=sh,
+        cell_ids=sh, loc_v=P(None, axis), loc_p=P(None, axis),
     )
 
 

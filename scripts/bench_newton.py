@@ -1,4 +1,4 @@
-"""Newton-step timing at flagship scale: windowed assembly + kernel v2.
+"""Newton-step timing at flagship scale: windowed assembly + windowed operator.
 
 env: REFINE (default 2), PRECOND (identity|block_diagonal|block_triangular),
 INNER (inner CG cap), NEWTON_REPS
@@ -8,7 +8,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 import jax
 import jax.numpy as jnp

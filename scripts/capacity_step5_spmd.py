@@ -2,7 +2,7 @@
 
 The 3.75M-DoF step-5 tet problem (858k cells) is the one VERDICT r3 called
 single-chip-impossible.  Round 4 fixed its memory model, but the mesh's
-refined numbering still exceeds the single-chip kernel's window limits — so
+refined numbering still exceeds the single-device windowed layout's limits — so
 this is exactly the problem class the reference distributes MPI ranks for
 (/root/reference/src/NavierStokesSolver.cpp:18-21).  This script runs ONE
 full windowed-SPMD Newton step on it over an 8-device mesh (virtual CPU
@@ -113,7 +113,7 @@ def main():
             "3D problem over an 8-device mesh — the problem class the "
             "single chip cannot run (VERDICT r3: its reason the reference "
             "has MPI).  Virtual CPU devices: same sharding/collectives as "
-            "a real slice; wall time is NOT a TPU number."
+            "a real slice; wall time is NOT a device number."
         ),
         "n_dofs": int(s.dofs.n_total),
         "n_cells": int(mesh.n_cells),

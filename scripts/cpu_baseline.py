@@ -6,7 +6,7 @@ ESTIMATE of deal.II Taylor-Hood tangent-assembly throughput (0.5 MDoF/s).
 This script replaces the estimate with a measurement: it times an
 INDEPENDENT from-scratch CPU implementation (the oracle's own P2/P1 basis
 tabulation + vectorized numpy einsum assembly + scipy sparse matrices —
-scripts/oracle_steady_ns.py, which shares nothing with the TPU stack) doing
+scripts/oracle_steady_ns.py, which shares nothing with the JAX stack) doing
 exactly the per-Newton-iteration work the reference re-does every iteration
 (/root/reference/src/NavierStokesSolver.cpp:593-612 assemble_system: full
 tangent matrix + residual): mass/dt + viscous + both convection Jacobian

@@ -1,6 +1,6 @@
 """DFG 2D-2 mesh-sequencing continuation: refine-1 limit cycle -> refine-2.
 
-A from-scratch refine=2 run spends hours of TPU time re-developing the
+A from-scratch refine=2 run spends hours of device time re-developing the
 vortex street (the weakly-pinned channel tangents need ~100-180 FGMRES
 iterations per step at 1.78M DoF).  The limit cycle is UNIQUE, so standard
 mesh sequencing applies: take the developed refine-1 state (t ~ 6, saved by
@@ -26,7 +26,6 @@ import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "examples"))
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 import numpy as np
 

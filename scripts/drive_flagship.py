@@ -1,13 +1,12 @@
 """End-to-end drive: as-shipped flagship run + NEW code paths (cahouet_chabard
 preconditioner, Stokes initial guess) on the target backend.
 
-env: VERIFY_BACKEND=tpu|cpu (cpu forces f64 oracle)
+env: VERIFY_BACKEND=gpu|cpu (cpu forces f64 oracle)
 """
 import os
 import sys
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
-backend = os.environ.get("VERIFY_BACKEND", "tpu")
+backend = os.environ.get("VERIFY_BACKEND", "gpu")
 
 import jax
 

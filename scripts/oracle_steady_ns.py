@@ -5,7 +5,7 @@ assembly/solver stack except the gmsh reader: its own dof numbering, its own
 basis tabulation, its own quadrature table, scipy sparse assembly, exact
 Newton with SuperLU, and three independent force evaluations.  Purpose:
 ground-truth cross-check of benchmark functionals (DFG 2D-1: published
-Cd 5.5795, Cl 0.01062, dP 0.11752) against which the TPU framework's
+Cd 5.5795, Cl 0.01062, dP 0.11752) against which the JAX framework's
 discretization is validated.  ~100k unknowns solve in minutes on one core.
 
 Weak form (gradient form, do-nothing outflow):

@@ -1,11 +1,10 @@
 """Host-side probe of the windowed-layout quality vs cell ordering (3D).
 
-VERDICT r4 #3: step-5 refine=2 (3.75M DoF tets) cannot compile single-chip
-because the RCM-driven blocked numbering yields halo-5 windows with 360-row
-subwindows.  This probe builds the layout for both orderings (RCM vs Morton
-SFC on centroids) on the 3D step meshes and the 2D bench mesh and reports
-halo blocks (hv/hp), subwindow rows (RVv/RVp), window rows (RWv/RWp), and
-pad factor — no TPU needed (layout construction is pure host numpy).
+The RCM-driven blocked numbering of step-5 refine=2 (3.75M DoF tets) yields
+halo-5 windows.  This probe builds the layout for both orderings (RCM vs
+Morton SFC on centroids) on the 3D step meshes and the 2D bench mesh and
+reports halo blocks (hv/hp), window lengths (Wv/Wp), and pad factor — no
+accelerator needed (layout construction is pure host numpy).
 
     python -u scripts/probe_3d_ordering.py
 """
@@ -36,7 +35,7 @@ def probe(name, mesh, refine, order, cpb=512, Bc=256):
         print(
             f"{name:22s} {order:4s} nc={m.n_cells:8d} n={lay.dim*lay.n_vs+lay.n_ps:9d} "
             f"nb={lay.nb:5d} OWv={lay.OWv:5d} hv={lay.hv} hp={lay.hp} "
-            f"RWv={lay.RWv:3d} RVv={lay.RVv:3d} RWp={lay.RWp:3d} RVp={lay.RVp:3d} "
+            f"Wv={lay.Wv:6d} Wp={lay.Wp:6d} "
             f"Bmax={lay.Bmax:5d} pad={lay.pad_factor:.2f} "
             f"[{time.perf_counter()-t0:.0f}s]",
             flush=True,

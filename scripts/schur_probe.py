@@ -19,7 +19,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jaxcache")
 
 import jax
 import jax.numpy as jnp
@@ -72,14 +71,14 @@ def main():
     print(f"||r|| = {res_norm:.3e}, atol = {atol:.3e}", flush=True)
 
     def mv(v):
-        y = windowed_matvec(lay, A_t, v, passes=2)
+        y = windowed_matvec(lay, A_t, v)
         return y.at[bc_rows].set(bc_diag * v[bc_rows])
 
     def apply_full(xu, zero_bc):
         x = jnp.zeros(n, dtype=xu.dtype).at[:n_u].set(xu)
         if zero_bc:
             x = x.at[bc_rows].set(0.0)
-        return windowed_matvec(lay, A_t, x, passes=2)
+        return windowed_matvec(lay, A_t, x)
 
     def A00_mv(v):
         y = apply_full(v, zero_bc=True)[:n_u]
@@ -93,12 +92,12 @@ def main():
     def Bt_p(p):  # velocity rows of A [0; p]
         x = jnp.zeros(n, dtype=p.dtype).at[n_u:].set(p)
         x = x.at[bc_rows].set(0.0)  # BC columns eliminated
-        return windowed_matvec(lay, A_t, x, passes=2)[:n_u]
+        return windowed_matvec(lay, A_t, x)[:n_u]
 
     def B_u(v):  # pressure rows of A [v; 0]
         x = jnp.zeros(n, dtype=v.dtype).at[:n_u].set(v)
         x = x.at[bc_rows].set(0.0)
-        return windowed_matvec(lay, A_t, x, passes=2)[n_u:]
+        return windowed_matvec(lay, A_t, x)[n_u:]
 
     def Ap_mv(p):  # SIMPLE Schur: B diag(A00)^-1 B^T  (SPD)
         return B_u(inv_du * Bt_p(p))

@@ -17,7 +17,7 @@ from navier_stokes_tpu.models.stokes import StokesSolver
 from navier_stokes_tpu.ops.windowed import (
     build_windowed_layout,
     to_block_form,
-    windowed_matvec_reference,
+    windowed_matvec,
 )
 from navier_stokes_tpu.utils.logging import RunLog
 
@@ -80,7 +80,7 @@ def test_windowed_matvec_3d():
         scatter_idx=None, n=dofs.n_total,
     )
     y_flat = np.asarray(ops.matvec(op, x))
-    y_win = np.asarray(windowed_matvec_reference(lay, to_block_form(lay, cell_mat), x))
+    y_win = np.asarray(windowed_matvec(lay, to_block_form(lay, cell_mat), x))
     np.testing.assert_allclose(y_win, y_flat, rtol=1e-10, atol=1e-10)
 
 

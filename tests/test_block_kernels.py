@@ -9,6 +9,7 @@ from navier_stokes_tpu.config import SolverConfig
 from navier_stokes_tpu.fem.assembly import assemble_navier_stokes, build_context
 from navier_stokes_tpu.fem.dofs import make_dofs, renumber_blocked
 from navier_stokes_tpu.fem.windowed_assembly import build_windowed_assembly
+from navier_stokes_tpu.la import operators as ops
 from navier_stokes_tpu.mesh.generate import unit_square
 from navier_stokes_tpu.models.navier_stokes import NavierStokesSolver
 from navier_stokes_tpu.ops.windowed import (
@@ -16,7 +17,6 @@ from navier_stokes_tpu.ops.windowed import (
     slice_block,
     to_block_form,
     windowed_matvec_block,
-    windowed_matvec_reference,
 )
 from navier_stokes_tpu.utils.logging import RunLog
 
@@ -37,8 +37,16 @@ def setup():
     )
     A_t = to_block_form(lay, cell_mat)
     x = jnp.asarray(rng.standard_normal(dofs.n_total))
-    y_full = np.asarray(windowed_matvec_reference(lay, A_t, x))
-    return dofs, ctx, lay, A_t, x, y_full
+    # independent oracle: the flat gather/segment-sum operator
+    op = ops.ElementOperator(
+        cell_mat=cell_mat,
+        cell_dofs=ctx.cell_dofs,
+        bc_rows=jnp.zeros((0,), jnp.int32),
+        bc_diag=jnp.zeros((0,)),
+        scatter_idx=None,
+        n=dofs.n_total,
+    )
+    return dofs, ctx, lay, A_t, x, lambda v: np.asarray(ops.matvec(op, v))
 
 
 @pytest.mark.parametrize(
@@ -48,7 +56,7 @@ def setup():
 def test_block_matvec_matches_full_slices(setup, ins, outs):
     """Each sub-block matvec must equal the corresponding segment of the full
     matvec applied to the zero-extended input."""
-    dofs, ctx, lay, A_t, x, _ = setup
+    dofs, ctx, lay, A_t, x, flat = setup
     n_u = dofs.n_u
     xf = np.zeros(dofs.n_total)
     if ins == "v":
@@ -57,9 +65,7 @@ def test_block_matvec_matches_full_slices(setup, ins, outs):
     else:
         seg = np.asarray(x)[n_u:]
         xf[n_u:] = seg
-    y_ref = np.asarray(
-        windowed_matvec_reference(lay, A_t, jnp.asarray(xf))
-    )
+    y_ref = flat(jnp.asarray(xf))
     expect = y_ref[:n_u] if outs == "v" else y_ref[n_u:]
     A_sub = slice_block(lay, A_t, ins, outs)
     got = np.asarray(
@@ -130,7 +136,7 @@ def test_coarse_correction_galerkin_and_speedup(setup):
     # restriction of Kp z_a must equal column a of inv(coarse_inv)
     def Kp_mv(p):
         return windowed_matvec_block(
-            lay, wa.Kp_t, p, in_spaces="p", out_spaces="p", passes=3
+            lay, wa.Kp_t, p, in_spaces="p", out_spaces="p"
         )
 
     Kc = np.linalg.inv(np.asarray(wa.coarse_inv, np.float64))
@@ -208,7 +214,7 @@ def test_two_level_vcycle_symmetric_and_stronger(setup):
 
     def Kp_mv(p):
         return windowed_matvec_block(
-            lay, wa.Kp_t, p, in_spaces="p", out_spaces="p", passes=3
+            lay, wa.Kp_t, p, in_spaces="p", out_spaces="p"
         )
 
     coarse = coarse_correction(wa.agg_p, wa.coarse_inv, wa.coarse_agg_size)
@@ -237,9 +243,8 @@ def test_two_level_vcycle_symmetric_and_stronger(setup):
 
 def test_bf16_precond_blocks_accuracy(setup):
     """precond_block_dtype="bfloat16": a bf16-STORED A00 block applied through
-    the block matvec stays within bf16 rounding (~1e-2 rel) of the f32 block,
-    and the reference path widens identically (exact agreement of the two
-    bf16 paths would need the TPU kernel; here we bound the storage error)."""
+    the block matvec stays within bf16 rounding (~1e-2 rel) of the f32 block
+    (the entries are widened on read; only the storage rounds)."""
     dofs, ctx, lay, A_t, x, _ = setup
     A32 = slice_block(lay, A_t, "v", "v").astype(jnp.float32)
     Abf = A32.astype(jnp.bfloat16)

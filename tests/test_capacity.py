@@ -3,7 +3,7 @@
 The reference's ENTIRE reason for MPI is fitting problems no single rank can
 hold (/root/reference/src/NavierStokesSolver.cpp:18-21 distributes the
 triangulation; hpp:785-794 keeps only owned+ghost vector rows per rank).
-These tests prove the TPU-native equivalent: under windowed SPMD every large
+These tests prove the JAX equivalent: under windowed SPMD every large
 device buffer of the solve state is sharded so PER-DEVICE bytes drop ~1/n_dev
 (jax.Array.addressable_shards), i.e. an n-device mesh holds an n-times-larger
 problem — memory weak scaling (VERDICT r3 #4).
@@ -66,7 +66,7 @@ def test_sharded_state_bytes_scale_inverse_with_devices(cyl_mesh):
         "inv_mp": wa.inv_mp,
         "diag_kp": wa.diag_kp,
         "cell_ids": s._lay_sharded.cell_ids,
-        "loc_v_hi": s._lay_sharded.loc_v_hi,
+        "loc_v": s._lay_sharded.loc_v,
     }
     total_bytes = 0
     max_share = 0

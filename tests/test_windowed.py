@@ -1,5 +1,5 @@
-"""Windowed (SFC-blocked) matvec: layout construction, reference math, and
-the Pallas kernel (interpret mode) must all agree with the flat operator."""
+"""Windowed (SFC-blocked) matvec: layout construction and the windowed
+gather/contract/scatter must agree with the flat operator."""
 
 import jax
 import jax.numpy as jnp
@@ -15,7 +15,6 @@ from navier_stokes_tpu.ops.windowed import (
     to_block_form,
     windowed_gather,
     windowed_matvec,
-    windowed_matvec_reference,
     windowed_scatter,
 )
 from navier_stokes_tpu.parallel.spmd import morton_order
@@ -54,18 +53,19 @@ def test_layout_covers_every_contribution(setup):
     dofs, lay, cell_mat, A_t, x, y_flat = setup
     # every cell appears in exactly one block; padding is modest
     ids = np.asarray(lay.cell_ids)
-    hi = np.asarray(lay.loc_v_hi)  # [nb, kpad, Bmax]
-    valid = hi[:, 0, :] < lay.RVv  # sentinel slots carry hi == RVv
+    valid = lay.valid_slots()
+    assert (np.asarray(lay.loc_v)[:, valid] < lay.Wv).all()
+    assert (np.asarray(lay.loc_v)[:, ~valid] == lay.Wv).all()  # sentinel
     assert sorted(ids[valid].tolist()) == list(range(dofs.mesh.n_cells))
-    # Bmax is the per-block cell count rounded up to one lane-chunk: padding
-    # beyond chunk-granularity rounding would mean misassigned home blocks
+    # Bmax is the per-block cell count rounded up to a multiple of Bc:
+    # padding beyond that rounding would mean misassigned home blocks
     per_block = valid.sum(axis=1).max()
     assert lay.Bmax - lay.Bc < per_block <= lay.Bmax
 
 
 def test_reference_matches_flat(setup):
     dofs, lay, cell_mat, A_t, x, y_flat = setup
-    y_win = np.asarray(windowed_matvec_reference(lay, A_t, x))
+    y_win = np.asarray(windowed_matvec(lay, A_t, x))
     np.testing.assert_allclose(y_win, y_flat, rtol=1e-10, atol=1e-10)
 
 
@@ -73,16 +73,18 @@ def test_gather_scatter_roundtrip(setup):
     """windowed_gather must return x at every cell dof; windowed_scatter of
     per-cell rows must equal the flat segment-sum (each cell counted once)."""
     dofs, lay, cell_mat, A_t, x, y_flat = setup
-    X = np.asarray(windowed_gather(lay, x))  # [nli, ncd]
+    X = np.asarray(windowed_gather(lay, x))  # [nl, ncd]
     ids = np.asarray(lay.cell_ids).reshape(-1)
-    valid = (np.asarray(lay.loc_v_hi)[:, 0, :] < lay.RVv).reshape(-1)
+    valid = lay.valid_slots().reshape(-1)
     cd = np.concatenate(
         [dofs.cell_vdofs + c * dofs.n_vs for c in range(dofs.dim)]
         + [dofs.n_u + dofs.cell_pdofs],
         axis=1,
     )
     expect = np.asarray(x)[cd[ids]].T  # [nl, ncd]
-    np.testing.assert_allclose(X[: lay.nl][:, valid], expect[:, valid], atol=1e-12)
+    assert X.shape == (lay.nl, lay.ncd)
+    np.testing.assert_allclose(X[:, valid], expect[:, valid], atol=1e-12)
+    np.testing.assert_array_equal(X[:, ~valid], 0.0)  # padding gathers zero
 
     rng = np.random.default_rng(7)
     Rcell = rng.standard_normal((dofs.mesh.n_cells, lay.nl))
@@ -96,14 +98,48 @@ def test_gather_scatter_roundtrip(setup):
 
 
 def test_pallas_interpret_matches_flat(setup):
+    """The jitted windowed matvec agrees with the flat operator in f64 to
+    rounding, and in f32 to f32 accumulation over <= 30 terms per row."""
     dofs, lay, cell_mat, A_t, x, y_flat = setup
-    y = np.asarray(
-        windowed_matvec(
-            lay, jnp.asarray(A_t, jnp.float32), jnp.asarray(x, jnp.float32),
-            interpret=True,
-        )
+    mv = jax.jit(windowed_matvec)
+    y64 = np.asarray(mv(lay, A_t, x))
+    assert y64.dtype == np.float64
+    np.testing.assert_allclose(y64, y_flat, rtol=1e-12, atol=1e-12)
+    y32 = np.asarray(
+        mv(lay, jnp.asarray(A_t, jnp.float32), jnp.asarray(x, jnp.float32))
     )
-    np.testing.assert_allclose(y, y_flat, rtol=2e-4, atol=2e-4)
+    assert y32.dtype == np.float32
+    rel = np.linalg.norm(y32 - y_flat) / np.linalg.norm(y_flat)
+    assert rel < 1e-6
+
+
+def _largest_intermediate(jaxpr) -> int:
+    """Most elements of any value a jaxpr (or a nested one) produces."""
+    m = 0
+    for eqn in jaxpr.eqns:
+        for v in eqn.outvars:
+            m = max(m, int(np.prod(v.aval.shape)))
+        for p in eqn.params.values():
+            for sub in p if isinstance(p, (list, tuple)) else (p,):
+                if hasattr(sub, "eqns"):
+                    m = max(m, _largest_intermediate(sub))
+                elif hasattr(sub, "jaxpr") and hasattr(sub.jaxpr, "eqns"):
+                    m = max(m, _largest_intermediate(sub.jaxpr))
+    return m
+
+
+def test_matvec_builds_no_per_cell_window_copy(setup):
+    """No value of the matvec is larger than the operator itself, and the
+    compiled program's scratch stays below it: a gather that broadcast each
+    block's window to every cell slot ([nb, Bmax, W] per component) would
+    need several times A_t."""
+    dofs, lay, cell_mat, A_t, x, y_flat = setup
+    per_cell_window = lay.ncd * (lay.Wv + 1)
+    assert per_cell_window > 1.5 * A_t.size  # the check can see the regression
+    jaxpr = jax.make_jaxpr(windowed_matvec)(lay, A_t, x).jaxpr
+    assert _largest_intermediate(jaxpr) <= A_t.size
+    ma = jax.jit(windowed_matvec).lower(lay, A_t, x).compile().memory_analysis()
+    assert ma.temp_size_in_bytes < A_t.nbytes
 
 
 def test_solver_with_windowed_matvec():
@@ -210,20 +246,80 @@ def test_renumbered_solution_equivalent():
     assert err < 1e-8
 
 
+@pytest.fixture(scope="module")
+def small_f32():
+    """One-block layout (128 cell slots) and a random f32 operator."""
+    dofs, block_info = renumber_blocked(make_dofs(unit_square(3)), cells_per_block=64)
+    lay = build_windowed_layout(
+        dofs.cell_vdofs, dofs.cell_pdofs, dofs.n_vs, dofs.n_ps, 2,
+        block_info=block_info,
+    )
+    rng = np.random.default_rng(3)
+    A = jnp.asarray(rng.standard_normal((lay.nl, lay.nli, lay.ncd)), jnp.float32)
+    x = jnp.asarray(rng.standard_normal(dofs.n_total), jnp.float32)
+    return lay, A, x
+
+
+def test_onepass_kernel_matches_plain_in_interpret_mode(small_f32, monkeypatch):
+    """The one-pass Pallas kernel's addressing, gathers, contraction and
+    window merge, run by the Pallas interpreter one cell per program (the
+    interpreter applies an atomic add with repeated indices as one store,
+    so one cell per program keeps every index of a call distinct)."""
+    from jax.experimental import pallas as pl
+
+    from navier_stokes_tpu.ops import windowed as W
+
+    lay, A, x = small_f32
+    real = pl.pallas_call
+
+    def interpreted(*args, **kw):
+        kw.pop("backend")
+        kw.pop("compiler_params")
+        return real(*args, interpret=True, **kw)
+
+    monkeypatch.setattr(pl, "pallas_call", interpreted)
+    y = np.asarray(W._onepass_matvec(lay, A, x, block=1), np.float64)
+    y_ref = np.asarray(W.windowed_matvec_block(lay, A, x), np.float64)
+    assert np.linalg.norm(y - y_ref) <= 1e-6 * np.linalg.norm(y_ref)
+
+
+def test_f32_matvec_lowers_to_plain_path_off_gpu(small_f32):
+    """Off an NVIDIA GPU the f32 matvec compiles the plain path only: the
+    lowered program holds no Triton kernel, and equals the plain apply."""
+    from navier_stokes_tpu.ops import windowed as W
+
+    lay, A, x = small_f32
+    text = jax.jit(W.windowed_matvec).lower(lay, A, x).as_text()
+    assert "triton" not in text and "onepass" not in text
+    np.testing.assert_array_equal(
+        np.asarray(W.windowed_matvec(lay, A, x)),
+        np.asarray(W.windowed_matvec_block(lay, A, x)),
+    )
+
+
 def test_bf16_operator_kernel_semantics(setup):
-    """bf16-stored A (KrylovConfig.operator_dtype): the interpret-mode kernel
-    must compute in x's dtype with A widened on read — i.e. match the
-    reference einsum on the bf16-cast A tightly, and the f32 result to the
-    bf16 rounding level."""
+    """bf16-stored A (KrylovConfig.operator_dtype): the matvec must compute
+    in x's dtype with A widened on read — i.e. match the flat f64 operator
+    on the bf16-rounded matrices to f32 accuracy, and the exact operator to
+    the bf16 rounding level."""
     dofs, lay, cell_mat, A_t, x, y_flat = setup
     A16 = jnp.asarray(A_t, jnp.bfloat16)
     x32 = jnp.asarray(x, jnp.float32)
-    y = windowed_matvec(lay, A16, x32, interpret=True)
+    y = windowed_matvec(lay, A16, x32)
     assert y.dtype == jnp.float32  # compute dtype follows x, not A
-    y_ref16 = windowed_matvec_reference(lay, A16, x32)
+    ctx = build_context(dofs, neumann_tags=(1,))
+    op16 = ops.ElementOperator(
+        cell_mat=jnp.asarray(cell_mat, jnp.bfloat16).astype(jnp.float64),
+        cell_dofs=ctx.cell_dofs,
+        bc_rows=jnp.zeros((0,), jnp.int32),
+        bc_diag=jnp.zeros((0,)),
+        scatter_idx=None,
+        n=dofs.n_total,
+    )
+    y_ref16 = np.asarray(ops.matvec(op16, jnp.asarray(x32, jnp.float64)))
     scale = np.max(np.abs(y_flat))
     np.testing.assert_allclose(
-        np.asarray(y), np.asarray(y_ref16), rtol=0, atol=3e-4 * scale
+        np.asarray(y), y_ref16, rtol=0, atol=1e-5 * scale
     )
     # vs the exact f32 operator: bf16 storage rounding only (~3e-3 relative)
     np.testing.assert_allclose(np.asarray(y), y_flat, rtol=0, atol=2e-2 * scale)

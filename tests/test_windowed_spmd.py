@@ -2,7 +2,7 @@
 must match the single-device result exactly, with only O(halo) ppermutes.
 
 Runs on the virtual CPU mesh (conftest forces 8 CPU devices); the windowed
-kernels use their same-math jnp reference path per shard."""
+operator runs per shard on a local layout."""
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +17,6 @@ from navier_stokes_tpu.ops.windowed import (
     build_windowed_layout,
     to_block_form,
     windowed_matvec,
-    windowed_matvec_reference,
 )
 from navier_stokes_tpu.parallel import windowed_spmd as wspmd
 from navier_stokes_tpu.parallel.spmd import device_mesh, shard_map
@@ -56,7 +55,7 @@ def test_sharded_matvec_matches_single(n_dev):
     mesh = device_mesh(n_dev, axis=wspmd.AXIS)
     lay_s = wspmd.shard_layout(lay, dl, mesh)
 
-    y_single = np.asarray(windowed_matvec_reference(lay, A_t, x))
+    y_single = np.asarray(windowed_matvec(lay, A_t, x))
 
     fn = shard_map(
         lambda la, A, v: windowed_matvec(la, A, v, axis_name=wspmd.AXIS),
